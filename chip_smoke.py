@@ -7,21 +7,36 @@ Needs one CUDA device and ``nvcc`` (kernels are built from
 ``horovod_tpu_torch/csrc`` into ``build/`` at first use).  Phases, one JSON
 line each:
 
-1. device    — ``nvidia-smi`` name and power limit (also printed raw on a
-               line of its own), torch and CUDA versions;
-2. build     — every kernel compiled, one ``nvcc`` per source in parallel;
-3. flash     — the flash-attention forward kernel against its plain
-               PyTorch version at ``[1, S, 6, 128]`` bf16, with times of
-               the kernel, the plain version and
-               ``F.scaled_dot_product_attention`` (a yardstick only), and
-               the card's bound for the same work;
-4. rmsnorm   — the RMSNorm forward kernel against its plain version at
-               ``[N, 768]`` bf16, same fields;
-5. serve     — the 162M decoder on the card with seeded weights, 16
-               requests through ``ServingEngine.submit`` /
-               ``run_until_idle``; launch counts of both kernels over that
-               run; one prefill repeated through the plain versions;
-6. kernels   — ``{"kernels": [...]}``, one entry per kernel of the path.
+1. device      — ``nvidia-smi`` name and power limit (also printed raw on a
+                 line of its own), torch and CUDA versions;
+2. build       — every kernel compiled, one ``nvcc`` per source in
+                 parallel;
+3. flash       — the flash-attention forward kernel against its plain
+                 PyTorch version at ``[1, S, 6, 128]`` and the training
+                 shape ``[8, 1024, 6, 128]``, bf16, with times of the
+                 kernel, the plain version and
+                 ``F.scaled_dot_product_attention`` (a yardstick only), and
+                 the card's bound for the same work;
+4. flash_bwd   — the dq and dk/dv kernels against their plain versions on
+                 the same ``(q, k, v, dO, lse, Δ)``, same fields (the
+                 yardstick is the backward of the library call);
+5. rmsnorm     — the RMSNorm forward kernel against its plain version at
+                 ``[N, 768]`` bf16, same fields;
+6. rmsnorm_bwd — the RMSNorm backward kernel likewise;
+7. serve       — the 162M decoder on the card with seeded weights, 16
+                 requests through ``ServingEngine.submit`` /
+                 ``run_until_idle``; launch counts of the forward kernels
+                 over that run; one prefill repeated through the plain
+                 versions;
+8. train       — the 162M training step of
+                 ``python -m horovod_tpu_torch.train_transformer``
+                 (``init`` on NCCL, ``DistributedOptimizer(AdamW)``, B=8,
+                 S=1024): 3 warm-up and 10 timed steps, a falling finite
+                 loss, exact launches of all five kernels per step, one
+                 step's gradients through the kernels against the same step
+                 through the plain versions, step time, tokens/s, MFU, peak
+                 memory and device time by kind of kernel;
+9. kernels     — ``{"kernels": [...]}``, one entry per kernel of the path.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; it exits non-zero
@@ -30,10 +45,12 @@ too when no CUDA device is present or the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -46,18 +63,52 @@ PEAK_F32_CUDA_CORE_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 SEED = 0
-FLASH_SHAPES = (  # (S_q, S_k, causal, q_offset): [1, S, 6, 128] bf16
-    (128, 128, True, 0), (256, 256, True, 0), (512, 512, True, 0),
-    (1000, 1000, True, 0), (1024, 1024, True, 0), (2048, 2048, True, 0),
-    (1024, 1024, False, 0), (128, 1024, True, 896))
-FLASH_MAIN = (1024, 1024, True, 0)   # the largest prefill bucket
-RMS_ROWS = (1, 8, 1000, 2048)        # [N, 768] bf16
-RMS_MAIN = 8                         # one decode step over 8 slots
+# (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
+# prefill buckets, S=1000 (masked edge tiles), a longer and a non-causal
+# row, a query block past its keys, and the training step's shape.
+FLASH_SHAPES = (
+    (1, 128, 128, True, 0), (1, 256, 256, True, 0), (1, 512, 512, True, 0),
+    (1, 1000, 1000, True, 0), (1, 1024, 1024, True, 0),
+    (1, 2048, 2048, True, 0), (1, 1024, 1024, False, 0),
+    (1, 128, 1024, True, 896), (8, 1024, 1024, True, 0))
+FLASH_BWD_SHAPES = (
+    (8, 1024, 1024, True, 0), (1, 128, 128, True, 0),
+    (1, 1000, 1000, True, 0), (1, 2048, 2048, True, 0),
+    (1, 1024, 1024, False, 0), (1, 128, 1024, True, 896))
+FLASH_MAIN = (8, 1024, 1024, True, 0)   # one training step's attention
+RMS_ROWS = (1, 8, 1000, 2048, 8192)     # [N, 768] bf16
+RMS_BWD_ROWS = (1000, 2048, 8192)
+RMS_MAIN = 8192                         # one training step's tokens
 # bf16 outputs: |kernel - plain| <= ATOL + RTOL * |plain|.  Both compute in
 # f32 and round once to bf16 (ulp 2**-8 relative), so they differ by at
 # most about one ulp; ATOL covers f32 summation order near zero.
 BF16_RTOL = 1.6e-2
 FLASH_ATOL, RMS_ATOL, LSE_ATOL = 1e-3, 1e-5, 1e-4
+# Backward gradients in bf16: |kernel - plain| <= GRAD_ATOL * max|plain| +
+# BF16_RTOL * |plain|.  Besides the final rounding to bf16, ds is rounded
+# to bf16 before its products (the TPU kernel's contract), and where the
+# two f32 values of ds straddle a rounding boundary the two round apart by
+# one ulp; dq and dk sum up to S = 2048 such terms, so the bound scales
+# with the gradient's magnitude.
+GRAD_ATOL = 2e-2
+# dscale sums N f32 terms in another order than the plain version: an
+# error that grows like sqrt(N) times an f32 ulp of the partial sums.
+DSCALE_ATOL_PER_SQRT_ROW = 1e-4
+# The 162M step through the kernels against the same step through the
+# plain versions, same weights and batch.  Both round every activation to
+# bf16 at the same places, but where one value rounds the other way (one
+# ulp, 2**-8 relative) it feeds every output of the next matrix product,
+# so within a few layers the two routes' roundings decorrelate and their
+# difference reaches the bf16 noise of the gradient itself (~2% measured
+# on the H100).  Loss ~10.9: |dloss| <= 0.02.  Each parameter's gradient:
+# ||g_kernel - g_plain|| / ||g_plain|| <= 0.05.
+TRAIN_LOSS_ATOL = 0.02
+TRAIN_GRAD_REL_L2 = 0.05
+# The same step in f32 compute, where the roundings the routes take apart
+# are 2**16 times finer: the same decorrelation leaves ~1e-6 (measured
+# 3.6e-6), and a kernel computing another function fails by far more.
+TRAIN_F32_LOSS_ATOL = 1e-4
+TRAIN_F32_GRAD_REL_L2 = 1e-3
 # Max |logits(kernels) - logits(plain)| over one 162M prefill.  Logits are
 # about N(0, 1) with these weights; the two paths round the same f32 values
 # to bf16 after every attention and norm, and a rounding that differs by
@@ -125,7 +176,9 @@ def phase_build():
     import horovod_tpu_torch.ops  # noqa: F401  (registers every kernel)
     from horovod_tpu_torch.ops import _build
 
-    if sorted(_build.KERNELS) != ["flash_fwd", "rmsnorm_fwd"]:
+    if sorted(_build.KERNELS) != ["flash_bwd_dkv", "flash_bwd_dq",
+                                  "flash_fwd", "rmsnorm_bwd",
+                                  "rmsnorm_fwd"]:
         raise AssertionError(f"kernels registered: {sorted(_build.KERNELS)}")
     def load(k):
         t = time.monotonic()
@@ -144,54 +197,136 @@ def phase_build():
          ptxas=ptxas)
 
 
-def phase_flash() -> dict:
+def _visible(s_q, s_k, causal, q_off):
+    qpos = q_off + torch.arange(s_q, device="cuda")
+    kpos = torch.arange(s_k, device="cuda")
+    return (qpos[:, None] >= kpos[None, :]) if causal else \
+        torch.ones(s_q, s_k, dtype=torch.bool, device="cuda")
+
+
+def _sdpa(causal, q_off, visible):
+    """``F.scaled_dot_product_attention`` over ``[B, H, S, D]`` with the
+    flash kernel's mask: the library's yardstick."""
     import torch.nn.functional as F
 
+    mask = visible if (causal and q_off) else None
+    return lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=bool(causal and not q_off))
+
+
+def phase_flash() -> dict:
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     h, d = 6, 128
     worst, main = 0.0, None
-    for s_q, s_k, causal, q_off in FLASH_SHAPES:
-        q = torch.randn(1, s_q, h, d, generator=gen, device="cuda",
+    for b, s_q, s_k, causal, q_off in FLASH_SHAPES:
+        q = torch.randn(b, s_q, h, d, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
-        k, v = (torch.randn(1, s_k, h, d, generator=gen, device="cuda",
+        k, v = (torch.randn(b, s_k, h, d, generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(2))
         out, lse = fa.flash_attention_with_lse(q, k, v, causal, q_off, 0)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal,
                                                         q_off, 0)
         torch.cuda.synchronize()
-        tag = f"flash S_q={s_q} S_k={s_k} causal={causal} q_offset={q_off}"
+        tag = f"flash B={b} S_q={s_q} S_k={s_k} causal={causal} " \
+              f"q_offset={q_off}"
         err = check_close(tag + " out", out, ref_out, FLASH_ATOL, BF16_RTOL)
         lse_err = check_close(tag + " lse", lse, ref_lse, LSE_ATOL, 0.0)
         worst = max(worst, err, lse_err)
-        qpos = q_off + torch.arange(s_q, device="cuda")
-        kpos = torch.arange(s_k, device="cuda")
-        visible = (qpos[:, None] >= kpos[None, :]) if causal else \
-            torch.ones(s_q, s_k, dtype=torch.bool, device="cuda")
-        pairs = int(visible.sum())
+        visible = _visible(s_q, s_k, causal, q_off)
+        pairs = b * int(visible.sum())
         flops = 4.0 * h * d * pairs
-        nbytes = 2.0 * (2 * s_q + 2 * s_k) * h * d + 4.0 * s_q * h
+        nbytes = 2.0 * b * (2 * s_q + 2 * s_k) * h * d + 4.0 * b * s_q * h
         bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = visible if (causal and q_off) else None
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask,
-            is_causal=bool(causal and not q_off))
+        lib = _sdpa(causal, q_off, visible)
         row = dict(
-            shape=[1, s_q, h, d], s_k=s_k, causal=causal, q_offset=q_off,
+            shape=[b, s_q, h, d], s_k=s_k, causal=causal, q_offset=q_off,
             max_abs_err=err, lse_max_abs_err=lse_err,
             kernel_ms=time_ms(lambda: fa.flash_attention_with_lse(
                 q, k, v, causal, q_off, 0)),
             plain_ms=time_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal, q_off, 0)),
-            library_ms=time_ms(lib), bound_ms=bound_ms, bound_by=bound_by,
-            flops=flops, bytes=nbytes)
+            library_ms=time_ms(lambda: lib(qt, kt, vt)), bound_ms=bound_ms,
+            bound_by=bound_by, flops=flops, bytes=nbytes)
         emit("flash", **row)
-        if (s_q, s_k, causal, q_off) == FLASH_MAIN:
+        if (b, s_q, s_k, causal, q_off) == FLASH_MAIN:
             main = row
     main["max_abs_err"] = worst
     return main
+
+
+def phase_flash_bwd() -> tuple[dict, dict]:
+    """The dq and dk/dv kernels against their plain versions, on the same
+    inputs, with lse from the forward kernel."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    h, d = 6, 128
+    worst = {"dq": 0.0, "dkv": 0.0}
+    main = {}
+    for b, s_q, s_k, causal, q_off in FLASH_BWD_SHAPES:
+        q, dout = (torch.randn(b, s_q, h, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, s_k, h, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal, q_off, 0)
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, dout, lse, delta, causal, q_off, 0)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        want_dq = fa.flash_bwd_dq_reference(*args)
+        want_dk, want_dv = fa.flash_bwd_dkv_reference(*args)
+        torch.cuda.synchronize()
+        tag = f"flash_bwd B={b} S_q={s_q} S_k={s_k} causal={causal} " \
+              f"q_offset={q_off}"
+        err = {"dq": check_close(tag + " dq", dq, want_dq,
+                                 GRAD_ATOL * want_dq.abs().max().item(),
+                                 BF16_RTOL),
+               "dkv": max(check_close(tag + f" {n}", got, want,
+                                      GRAD_ATOL * want.abs().max().item(),
+                                      BF16_RTOL)
+                          for n, got, want in (("dk", dk, want_dk),
+                                               ("dv", dv, want_dv)))}
+        visible = _visible(s_q, s_k, causal, q_off)
+        pairs = b * int(visible.sum())
+        # Each input read once, each output written once: bf16 q, k, v, dO
+        # and f32 lse, delta in; bf16 dq (or dk and dv) out.
+        read = 2.0 * b * (2 * s_q + 2 * s_k) * h * d + 8.0 * b * s_q * h
+        work = {"dq": (3 * 2.0 * d * h * pairs, read + 2.0 * b * s_q * h * d),
+                "dkv": (4 * 2.0 * d * h * pairs,
+                        read + 4.0 * b * s_k * h * d)}
+        kernel = {"dq": lambda: fa.flash_bwd_dq(*args),
+                  "dkv": lambda: fa.flash_bwd_dkv(*args)}
+        plain = {"dq": lambda: fa.flash_bwd_dq_reference(*args),
+                 "dkv": lambda: fa.flash_bwd_dkv_reference(*args)}
+        # The yardstick: the library's whole backward (dq, dk and dv) over
+        # a graph built once.
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = _sdpa(causal, q_off, visible)(qt, kt, vt)
+        dout_t = dout.transpose(1, 2).contiguous()
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout_t, retain_graph=True))
+        for name in ("dq", "dkv"):
+            flops, nbytes = work[name]
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            worst[name] = max(worst[name], err[name])
+            row = dict(
+                kernel=f"flash_bwd_{name}", shape=[b, s_q, h, d], s_k=s_k,
+                causal=causal, q_offset=q_off, max_abs_err=err[name],
+                kernel_ms=time_ms(kernel[name]),
+                plain_ms=time_ms(plain[name]), library_ms=library_ms,
+                library_computes="dq, dk and dv", bound_ms=bound_ms,
+                bound_by=bound_by, flops=flops, bytes=nbytes)
+            emit("flash_bwd", **row)
+            if (b, s_q, s_k, causal, q_off) == FLASH_MAIN:
+                main[name] = row
+        del lib_out
+    for name in main:
+        main[name]["max_abs_err"] = worst[name]
+    return main["dq"], main["dkv"]
 
 
 def phase_rmsnorm() -> dict:
@@ -225,6 +360,54 @@ def phase_rmsnorm() -> dict:
             bound_ms=bound_ms, bound_by=bound_by, flops=flops,
             bytes=nbytes)
         emit("rmsnorm", **row)
+        if n == RMS_MAIN:
+            main = row
+    main["max_abs_err"] = worst
+    return main
+
+
+def phase_rmsnorm_bwd() -> dict:
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    e = 768
+    scale = 1.0 + 0.1 * torch.randn(e, generator=gen, device="cuda")
+    worst, main = 0.0, None
+    lib_fn = getattr(F, "rms_norm", None)
+    for n in RMS_BWD_ROWS:
+        x, dy = (torch.randn(n, e, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        dx, dscale = rn.rms_norm_backward(x, scale, dy)
+        want_dx, want_dscale = rn.rms_norm_backward_reference(x, scale, dy)
+        torch.cuda.synchronize()
+        err = max(check_close(f"rmsnorm_bwd N={n} dx", dx, want_dx,
+                              RMS_ATOL, BF16_RTOL),
+                  check_close(f"rmsnorm_bwd N={n} dscale", dscale,
+                              want_dscale,
+                              DSCALE_ATOL_PER_SQRT_ROW * n ** 0.5, 1e-5))
+        worst = max(worst, err)
+        # bf16 x, dy in and dx out, f32 scale in and dscale out.
+        nbytes = 2.0 * n * e * 3 + 8.0 * e
+        # x^2 sum, g = dy*scale, x^ = x*r, g*x^ sum, dx, dscale sum.
+        flops = 11.0 * n * e
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_CUDA_CORE_FLOPS)
+        library_ms = None
+        if lib_fn is not None:
+            xl = x.detach().requires_grad_()
+            wl = scale.to(x.dtype).requires_grad_()
+            yl = lib_fn(xl, (e,), wl, 1e-6)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl), dy, retain_graph=True))
+        row = dict(
+            shape=[n, e], max_abs_err=err,
+            kernel_ms=time_ms(lambda: rn.rms_norm_backward(x, scale, dy)),
+            plain_ms=time_ms(lambda: rn.rms_norm_backward_reference(
+                x, scale, dy)),
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            flops=flops, bytes=nbytes)
+        emit("rmsnorm_bwd", **row)
         if n == RMS_MAIN:
             main = row
     main["max_abs_err"] = worst
@@ -327,6 +510,133 @@ def phase_serve() -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Run every kernel's plain PyTorch version on the card instead of the
+    kernel: the wrappers pick their route by ``_on_cuda``."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import rmsnorm as rn
+
+    saved = fa._on_cuda, rn._on_cuda
+    fa._on_cuda = rn._on_cuda = lambda t: False
+    try:
+        yield
+    finally:
+        fa._on_cuda, rn._on_cuda = saved
+
+
+def step_vs_plain(model, tokens) -> dict:
+    """One training step's loss and gradients through the kernels against
+    the same step through the plain versions, at the same weights."""
+    from horovod_tpu_torch import train_transformer as tt
+
+    runs = []
+    for route in (contextlib.nullcontext, plain_versions):
+        model.zero_grad(set_to_none=True)
+        with route():
+            loss = tt.loss_fn(model, tokens)
+            loss.backward()
+        runs.append((float(loss.detach()),
+                     {n: p.grad.float() for n, p in model.named_parameters()}))
+    model.zero_grad(set_to_none=True)
+    (loss_k, g_k), (loss_p, g_p) = runs
+    rel = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm()).item()
+           for n in g_k}
+    worst = max(rel, key=rel.get)
+    return {"kernel_loss": loss_k, "plain_loss": loss_p,
+            "loss_diff": abs(loss_k - loss_p),
+            "finite": all(bool(torch.isfinite(g).all())
+                          for g in g_k.values()),
+            "grad_rel_l2_max": rel[worst], "worst_param": worst,
+            "grad_rel_l2_median": float(np.median(list(rel.values())))}
+
+
+def phase_train() -> dict:
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()   # NCCL, world 1: the reduce is the identity
+    try:
+        dev = basics.device()
+        cfg = tt.train_config()
+        model, opt = tt.make_trainer(cfg, dev, SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = tt.token_batch(cfg.vocab_size, dev)
+        # One step's gradients at the seeded weights and the batch,
+        # through the kernels against the plain versions: in bf16 (the
+        # step as it trains) and in f32 (where the roundings that the two
+        # routes take apart are 2**16 times finer).  Taken before
+        # training: a few steps memorise the fixed batch, and the
+        # gradients of a near-zero loss are mostly rounding.
+        checks = {"bf16": step_vs_plain(model, tokens)}
+        f32_cfg = tt.train_config(dtype=torch.float32,
+                                  logits_dtype=torch.float32)
+        f32_model = Transformer(f32_cfg, device=dev)
+        f32_model.load_state_dict(model.state_dict())
+        checks["f32"] = step_vs_plain(f32_model, tokens)
+        del f32_model
+        for name, bounds in (("bf16", (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2)),
+                             ("f32", (TRAIN_F32_LOSS_ATOL,
+                                      TRAIN_F32_GRAD_REL_L2))):
+            c = checks[name]
+            if not c["finite"] or c["loss_diff"] > bounds[0] \
+                    or c["grad_rel_l2_max"] > bounds[1]:
+                raise AssertionError(f"{name} train step, kernels vs plain "
+                                     f"versions: {c}, bounds {bounds}")
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses = [tt.train_step(model, opt, tokens)
+                  for _ in range(tt.WARMUP_STEPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [tt.train_step(model, opt, tokens)
+                   for _ in range(tt.TIMED_STEPS)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / tt.TIMED_STEPS
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+
+        steps = tt.WARMUP_STEPS + tt.TIMED_STEPS
+        norms = 2 * cfg.num_layers + 1
+        per_step = {"flash_fwd": cfg.num_layers,
+                    "flash_bwd_dq": cfg.num_layers,
+                    "flash_bwd_dkv": cfg.num_layers,
+                    "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}
+        if launches != {n: steps * c for n, c in per_step.items()}:
+            raise AssertionError(f"train launches {launches} over {steps} "
+                                 f"steps, want {per_step} per step")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train losses not finite and falling: "
+                                 f"{losses}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            breakdown = trace.measure(
+                "train_step", lambda: tt.train_step(model, opt, tokens), 3,
+                tmp)
+
+        tok_s = tt.BATCH * tt.SEQ_LEN / step_s
+        emit("train", model="162M decoder (12 x 768, 6 heads of 128, vocab "
+             "32000, bf16 compute / f32 params, bf16 logits)",
+             params=n_params, batch=tt.BATCH, seq_len=tt.SEQ_LEN,
+             processes=basics.size(),
+             backend=torch.distributed.get_backend(), losses=losses,
+             step_ms=step_s * 1e3, tok_per_s=tok_s,
+             mfu=tok_s * tt.flops_per_token(n_params, cfg, tt.SEQ_LEN)
+             / PEAK_BF16_FLOPS,
+             launches=launches, launches_per_step=per_step,
+             max_memory_allocated=peak, breakdown=breakdown,
+             step_vs_plain=checks)
+    finally:
+        basics.shutdown()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one",
@@ -339,13 +649,22 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     flash = phase_flash()
+    dq, dkv = phase_flash_bwd()
     rms = phase_rmsnorm()
-    launches = phase_serve()
+    rms_bwd = phase_rmsnorm_bwd()
+    serve_launches = phase_serve()
+    if not (serve_launches["flash_fwd"] and serve_launches["rmsnorm_fwd"]):
+        raise AssertionError("the serve run launched no forward kernel")
+    # Launches on this slice's main path: the training run.
+    launches = phase_train()
     entries = []
     for name, row, replaces in (
-            ("flash_fwd", flash,
-             "horovod_tpu/ops/flash_attention.py:70"),
-            ("rmsnorm_fwd", rms, "horovod_tpu/ops/rmsnorm.py:62")):
+            ("flash_fwd", flash, "horovod_tpu/ops/flash_attention.py:70"),
+            ("flash_bwd_dq", dq, "horovod_tpu/ops/flash_attention.py:389"),
+            ("flash_bwd_dkv", dkv,
+             "horovod_tpu/ops/flash_attention.py:487"),
+            ("rmsnorm_fwd", rms, "horovod_tpu/ops/rmsnorm.py:62"),
+            ("rmsnorm_bwd", rms_bwd, "horovod_tpu/ops/rmsnorm.py:69")):
         entries.append({
             "name": name, "route": "cuda",
             "source": f"horovod_tpu_torch/csrc/{name}.cu",

@@ -1,5 +1,5 @@
-"""horovod_tpu_torch — the PyTorch/CUDA port of horovod_tpu, for one NVIDIA
-H100 (``sm_90a``).
+"""horovod_tpu_torch — the PyTorch/CUDA port of horovod_tpu, for NVIDIA H100
+cards (``sm_90a``), one process per card.
 
 The package mirrors the layout of ``horovod_tpu`` (``ops/``, ``models/``,
 ``serving/``, ``utils/``) so each module's counterpart is easy to find, and
@@ -10,14 +10,38 @@ same contract; a CUDA tensor launches the kernel, a CPU tensor takes the
 plain version.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when asked for CUDA without it.
 
-Ported so far: the serving path of the decoder transformer (forward flash
-attention, RMSNorm forward, the model, the continuous-batching engine).
+Ported so far: the serving path of the decoder transformer (slice 1) and
+its synchronous data-parallel training step (slice 2): the ``hvd``-style
+surface below, the backward kernels of flash attention and RMSNorm, and
+``python -m horovod_tpu_torch.train_transformer``.  Importing the package
+creates no process group; :func:`init` does.
 """
 
 from __future__ import annotations
 
+from horovod_tpu_torch.basics import (NotInitializedError, cross_rank,
+                                      cross_size, init, is_initialized,
+                                      local_rank, local_size, num_chips,
+                                      rank, shutdown, size)
+from horovod_tpu_torch.ops.collective_ops import (allgather, allreduce,
+                                                  broadcast,
+                                                  grouped_allreduce)
+from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.losses import softmax_cross_entropy
+from horovod_tpu_torch.training import (DistributedOptimizer,
+                                        broadcast_object,
+                                        broadcast_optimizer_state,
+                                        broadcast_parameters,
+                                        scale_learning_rate)
 from horovod_tpu_torch.utils.device import resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "Compression", "DistributedOptimizer", "NotInitializedError",
+    "allgather", "allreduce", "broadcast", "broadcast_object",
+    "broadcast_optimizer_state", "broadcast_parameters", "cross_rank",
+    "cross_size", "grouped_allreduce", "init", "is_initialized",
+    "local_rank", "local_size", "num_chips", "rank", "resolve_device",
+    "scale_learning_rate", "shutdown", "size", "softmax_cross_entropy",
+]

@@ -1,8 +1,9 @@
-"""Forward flash attention: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``, each beside its
+plain PyTorch version, and the ``torch.autograd.Function`` that joins them.
 
-Counterpart of ``horovod_tpu/ops/flash_attention.py`` (forward only).  The
-contract is the JAX package's public one, over ``[B, S, H, D]`` tensors:
+Counterpart of ``horovod_tpu/ops/flash_attention.py``.  The contract is the
+JAX package's public one, over ``[B, S, H, D]`` tensors:
 
 * ``scale * log2(e)`` is folded into q, which is rounded to the input dtype
   once; scores live in the log2 domain and the softmax runs on ``exp2``;
@@ -10,13 +11,20 @@ contract is the JAX package's public one, over ``[B, S, H, D]`` tensors:
   ``q_offset + i`` iff ``not causal or q_offset + i >= k_offset + j``;
 * the output is the f32 accumulator divided by ``max(l, 1e-30)`` and cast to
   the input dtype, and ``lse[b, s, h]`` is the natural-log log-sum-exp in
-  f32, :data:`NEG_INF` for a row that attended to nothing.
+  f32, :data:`NEG_INF` for a row that attended to nothing;
+* the backward recomputes ``p = exp2(s - lse * log2(e))`` from the saved
+  lse (0 on rows that attended to nothing), rounds ``ds = p * (dp - Δ)`` to
+  the input dtype before both of its products, keeps p in f32 for dv, and
+  applies ``scale`` to dq and ``ln 2`` to dk once, at the end.
 
-A CUDA tensor launches the kernel (float32 or bfloat16, ``head_dim`` 64 or
-128) or raises; a CPU tensor takes :func:`flash_attention_reference`.  The
-backward is not ported yet, so the CUDA path raises when autograd would
-record it.  The TPU tiling knobs (``block_q``, ``block_k``, ``sub``) are
-accepted so call sites match, and ignored: the kernel's tiles are its own.
+A CUDA tensor launches the kernels (float32 or bfloat16, ``head_dim`` 64 or
+128) or raises; a CPU tensor takes the plain versions.
+:func:`flash_attention` is differentiable on every device through
+:class:`_Flash`; :func:`flash_attention_with_lse` is forward-only, as in
+the JAX package, and :func:`flash_attention_backward` takes lse and Δ
+explicitly, so ring attention can drive both per step with merged
+statistics.  The TPU tiling knobs (``block_q``, ``block_k``, ``sub``) are
+accepted so call sites match, and ignored: the kernels' tiles are their own.
 """
 
 from __future__ import annotations
@@ -31,11 +39,16 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = _build.register(
     "flash_fwd", "hvd_flash_fwd",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-     _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+DQ_KERNEL = _build.register(
+    "flash_bwd_dq", "hvd_flash_bwd_dq",
+    [_P] * 7 + [_I] * 9 + [_F, _F, _P])
+DKV_KERNEL = _build.register(
+    "flash_bwd_dkv", "hvd_flash_bwd_dkv",
+    [_P] * 8 + [_I] * 9 + [_F, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
@@ -44,21 +57,28 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _fold_q(q):
+    """q times ``scale * log2(e)``, rounded to q's dtype once, as f32."""
+    return (q.float() * (q.shape[-1] ** -0.5 * LOG2E)).to(q.dtype).float()
+
+
+def _visible(s_q, s_k, causal, q_offset, k_offset, device):
+    """``[S_q, S_k]`` mask of the (query, key) pairs that attend."""
+    if not causal:
+        return torch.ones(s_q, s_k, dtype=torch.bool, device=device)
+    qpos = int(q_offset) + torch.arange(s_q, device=device)
+    kpos = int(k_offset) + torch.arange(s_k, device=device)
+    return qpos[:, None] >= kpos[None, :]
+
+
 def flash_attention_reference(q, k, v, causal: bool = True, q_offset=0,
                               k_offset=0):
-    """Plain PyTorch version of the kernel's arithmetic, dense over all
-    (q, k) pairs: same q fold and rounding, same exp2-domain softmax, same
-    output and lse contract.  Returns ``(out, lse)``."""
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
-    qs = (q.float() * (d ** -0.5 * LOG2E)).to(q.dtype).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
-    if causal:
-        qpos = int(q_offset) + torch.arange(s_q, device=q.device)
-        kpos = int(k_offset) + torch.arange(s_k, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :]
-    else:
-        mask = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device)
+    """Plain PyTorch version of the forward kernel's arithmetic, dense over
+    all (q, k) pairs: same q fold and rounding, same exp2-domain softmax,
+    same output and lse contract.  Returns ``(out, lse)``."""
+    mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset,
+                    q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", _fold_q(q), k.float())
     s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp2(s - m), 0.0)
@@ -71,12 +91,54 @@ def flash_attention_reference(q, k, v, causal: bool = True, q_offset=0,
             lse[..., 0].permute(0, 2, 1).contiguous())
 
 
+def _bwd_p_ds(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+    """The backward's recomputed ``p`` (f32) and ``ds`` (rounded to the
+    input dtype), ``[B, H, S_q, S_k]``, and the folded q."""
+    mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset,
+                    q.device)
+    qs = _fold_q(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    lse_t = lse.float().permute(0, 2, 1)[..., None]         # [b, h, q, 1]
+    attended = lse_t > NEG_INF / 2
+    p = torch.where(mask & attended, torch.exp2(s - lse_t * LOG2E), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(q.dtype).float(), v.float())
+    ds = p * (dp - delta.float().permute(0, 2, 1)[..., None])
+    return p, ds.to(q.dtype).float(), qs
+
+
+def flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal: bool = True,
+                           q_offset=0, k_offset=0):
+    """Plain PyTorch version of the dq kernel: ``scale * Σ_k ds·K``, in
+    q's dtype."""
+    _, ds, _ = _bwd_p_ds(q, k, v, dout, lse, delta, causal, q_offset,
+                         k_offset)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * q.shape[-1] ** -0.5
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool = True,
+                            q_offset=0, k_offset=0):
+    """Plain PyTorch version of the dk/dv kernel: ``dk = ln 2 · Σ_q dsᵀ·q̃``
+    and ``dv = Σ_q pᵀ·dO``, in k's and v's dtypes."""
+    p, ds, qs = _bwd_p_ds(q, k, v, dout, lse, delta, causal, q_offset,
+                          k_offset)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs) * LN2
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.to(q.dtype).float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                       causal: bool = True, q_offset=0,
+                                       k_offset=0):
+    """Plain PyTorch version of :func:`flash_attention_backward`."""
+    dq = flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, q_offset,
+                                k_offset)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,
+                                     q_offset, k_offset)
+    return dq, dk, dv
+
+
 def _check_cuda_inputs(q, k, v):
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("flash_attention: the backward kernels are not "
-                           "ported yet; call under torch.no_grad() or "
-                           "torch.inference_mode()")
     if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"flash_attention: CUDA kernel takes float32 or "
                          f"bfloat16 q/k/v of one dtype, got {q.dtype}, "
@@ -97,6 +159,21 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
 
 
+def _check_cuda_grad_inputs(q, dout, lse, delta):
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"flash_attention_backward: dout must be "
+                         f"{tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    stats = q.shape[:3]
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != stats or t.dtype != torch.float32 or \
+                t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention_backward: {name} must be "
+                             f"contiguous float32 {tuple(stats)} on "
+                             f"{q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
 def _flash_cuda(q, k, v, causal, q_offset, k_offset):
     _check_cuda_inputs(q, k, v)
     b, s_q, h, d = q.shape
@@ -112,21 +189,115 @@ def _flash_cuda(q, k, v, causal, q_offset, k_offset):
     return out, lse
 
 
+def _bwd_cuda_args(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+    """Checked inputs of a backward kernel: ``dout`` in q's dtype, and the
+    shared arguments after the pointers."""
+    _check_cuda_inputs(q, k, v)
+    dout = dout.to(q.dtype).contiguous()
+    _check_cuda_grad_inputs(q, dout, lse, delta)
+    b, s_q, h, d = q.shape
+    return dout, (_DTYPES[q.dtype], b, h, s_q, k.shape[1], d,
+                  int(bool(causal)), int(q_offset), int(k_offset),
+                  d ** -0.5 * LOG2E)
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
+                 q_offset=0, k_offset=0):
+    """dq of flash attention (the dq kernel on CUDA, else
+    :func:`flash_bwd_dq_reference`)."""
+    if not _on_cuda(q):
+        return flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal,
+                                      q_offset, k_offset)
+    dout, args = _bwd_cuda_args(q, k, v, dout, lse, delta, causal, q_offset,
+                                k_offset)
+    dq = torch.empty_like(q)
+    if q.shape[1]:
+        with torch.cuda.device(q.device):
+            DQ_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dq.data_ptr(), *args, q.shape[-1] ** -0.5,
+                      _build.stream_of(q))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
+                  q_offset=0, k_offset=0):
+    """``(dk, dv)`` of flash attention (the dk/dv kernel on CUDA, else
+    :func:`flash_bwd_dkv_reference`)."""
+    if not _on_cuda(q):
+        return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,
+                                       q_offset, k_offset)
+    dout, args = _bwd_cuda_args(q, k, v, dout, lse, delta, causal, q_offset,
+                                k_offset)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.shape[1]:
+        with torch.cuda.device(q.device):
+            DKV_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), *args,
+                       _build.stream_of(q))
+    return dk, dv
+
+
 def flash_attention_with_lse(q, k, v, causal: bool = True, q_offset=0,
                              k_offset=0, block_q=None, block_k=None,
                              sub=None):
     """Forward attention over ``[B, S, H, D]`` returning ``(out, lse)``,
-    ``lse`` as ``[B, Sq, H]`` float32."""
+    ``lse`` as ``[B, Sq, H]`` float32.  Forward-only: the caller handles
+    differentiation, through :func:`flash_attention_backward`."""
     if _on_cuda(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise RuntimeError(
+                "flash_attention_with_lse is forward-only; use "
+                "flash_attention for autograd, or drive "
+                "flash_attention_backward with the saved lse")
         return _flash_cuda(q, k, v, causal, q_offset, k_offset)
     return flash_attention_reference(q, k, v, causal, q_offset, k_offset)
 
 
+def flash_attention_backward(q, k, v, dout, lse, delta, causal: bool = True,
+                             q_offset=0, k_offset=0):
+    """``(dq, dk, dv)`` from the forward's inputs, the output's gradient
+    ``dout``, and the saved ``lse`` and ``delta = Σ_D dout·out`` (both
+    ``[B, Sq, H]`` float32), in the dtypes of q, k and v: the dq pass,
+    then the dk/dv pass."""
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, q_offset, k_offset)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, q_offset,
+                           k_offset)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its fused backward, as the JAX package's
+    ``_flash`` custom VJP: the forward saves ``(q, k, v, out, lse)``; the
+    backward forms ``Δ = Σ_D dO·O`` in f32 and runs both backward passes.
+    The offsets are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, k_offset):
+        out, lse = flash_attention_with_lse(q, k, v, causal, q_offset,
+                                            k_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, k_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1)
+        dq, dk, dv = flash_attention_backward(q, k, v, g, lse, delta,
+                                              *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, q_offset=0, k_offset=0,
                     block_q=None, block_k=None, sub=None):
-    """Forward attention over ``[B, S, H, D]`` tensors; ``q_offset`` and
-    ``k_offset`` are the global positions of the first row and column."""
-    return flash_attention_with_lse(q, k, v, causal, q_offset, k_offset)[0]
+    """Attention over ``[B, S, H, D]`` tensors; ``q_offset`` and ``k_offset``
+    are the global positions of the first row and column.  Differentiable
+    in q, k and v."""
+    return _Flash.apply(q, k, v, causal, q_offset, k_offset)
 
 
 def make_flash_attention(block_q=None, block_k=None, sub=None):

@@ -1,16 +1,18 @@
-"""RMSNorm forward: the CUDA kernel ``csrc/rmsnorm_fwd.cu`` and its plain
-PyTorch version.
+"""RMSNorm: the CUDA kernels ``csrc/rmsnorm_fwd.cu`` and
+``csrc/rmsnorm_bwd.cu``, each beside its plain PyTorch version, and the
+``torch.autograd.Function`` that joins them.
 
-Counterpart of ``horovod_tpu/ops/rmsnorm.py`` (forward only):
+Counterpart of ``horovod_tpu/ops/rmsnorm.py``:
 ``y = x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, statistics in
-f32, ``y`` in x's dtype.  A CUDA tensor launches the kernel (float32 or
-bfloat16 ``x``; the scale goes to the kernel as float32) or raises; a CPU
-tensor takes :func:`rms_norm_reference`.  The backward is not ported yet,
-so the CUDA path raises when autograd would record it.
+f32, ``y`` in x's dtype.  The backward recomputes the rsqrt from x (only
+``x`` and ``scale`` are saved), gives ``dx`` in x's dtype and ``dscale`` in
+scale's.  A CUDA tensor launches the kernels (float32 or bfloat16 ``x``;
+the scale goes to them as float32) or raises; a CPU tensor takes
+:func:`rms_norm_reference` and :func:`rms_norm_backward_reference`.
 
-The JAX package leaves the kernel off by default because XLA fuses the
+The JAX package leaves the kernels off by default because XLA fuses the
 plain norm into its neighbours on the TPU.  Eager PyTorch fuses nothing, so
-on the card the kernel is the one-pass version of the norm.
+on the card the kernels are the one-pass versions of the norm.
 """
 
 from __future__ import annotations
@@ -23,11 +25,19 @@ from torch import nn
 from horovod_tpu_torch.ops import _build
 
 DEFAULT_EPS = 1e-6
+# The backward kernel's grid cap: each block writes one [E] row of dscale
+# partials, so this bounds the scratch the wrapper sums.
+MAX_BWD_BLOCKS = 256
+# The backward kernel keeps 8 rows of f32 dscale partials in shared memory
+# (8 * E * 4 bytes of the 227 KB a block may use).
+MAX_BWD_WIDTH = 7168
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = _build.register(
-    "rmsnorm_fwd", "hvd_rmsnorm_fwd",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    "rmsnorm_fwd", "hvd_rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _F, _P])
+BWD_KERNEL = _build.register(
+    "rmsnorm_bwd", "hvd_rmsnorm_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                       _I, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -42,11 +52,20 @@ def rms_norm_reference(x, scale, eps: float = DEFAULT_EPS):
     return (xf * inv * scale.float()).to(x.dtype)
 
 
-def _rms_norm_cuda(x, scale, eps):
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        raise RuntimeError("rms_norm: the backward kernel is not ported yet; "
-                           "call under torch.no_grad() or "
-                           "torch.inference_mode()")
+def rms_norm_backward_reference(x, scale, dy, eps: float = DEFAULT_EPS):
+    """Plain PyTorch version of the backward kernel: ``(dx, dscale)`` with
+    ``dx = r·(g − x̂·mean(g·x̂))``, ``g = dy·scale``, in x's dtype, and
+    ``dscale = Σ dy·x̂`` over every leading axis, in scale's dtype."""
+    xf, dyf = x.float(), dy.float()
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    g = dyf * scale.float()
+    dx = inv * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def _check_cuda_inputs(x, scale):
     if x.dtype not in _DTYPES:
         raise ValueError(f"rms_norm: CUDA kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
@@ -56,6 +75,10 @@ def _rms_norm_cuda(x, scale, eps):
                          f"{scale.device}")
     if not x.is_contiguous():
         raise ValueError("rms_norm: x must be contiguous")
+
+
+def _rms_norm_cuda(x, scale, eps):
+    _check_cuda_inputs(x, scale)
     e = x.shape[-1]
     n = x.numel() // e if e else 0
     y = torch.empty_like(x)
@@ -68,16 +91,69 @@ def _rms_norm_cuda(x, scale, eps):
     return y
 
 
-def rms_norm(x, scale, eps: float = DEFAULT_EPS):
-    """RMSNorm over the last axis.  ``x``: ``[..., E]``; ``scale``: ``[E]``."""
+def _rms_norm_bwd_cuda(x, scale, dy, eps):
+    _check_cuda_inputs(x, scale)
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"rms_norm backward: dy must be {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    e = x.shape[-1]
+    if e > MAX_BWD_WIDTH:
+        raise ValueError(f"rms_norm backward: CUDA kernel takes a last axis "
+                         f"of at most {MAX_BWD_WIDTH}, got {e}")
+    n = x.numel() // e if e else 0
+    dx = torch.empty_like(x)
+    if n == 0:
+        return dx, torch.zeros_like(scale)
+    blocks = min(-(-n // 8), MAX_BWD_BLOCKS)
+    part = torch.empty((blocks, e), dtype=torch.float32, device=x.device)
+    scale32 = scale.to(torch.float32).contiguous()
+    with torch.cuda.device(x.device):
+        BWD_KERNEL(x.data_ptr(), dy.data_ptr(), scale32.data_ptr(),
+                   dx.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], n, e,
+                   eps, blocks, _build.stream_of(x))
+    # The per-block partials' sum, as the JAX caller sums its kernel's
+    # (rmsnorm.py:139).
+    return dx, part.sum(dim=0).to(scale.dtype)
+
+
+def rms_norm_backward(x, scale, dy, eps: float = DEFAULT_EPS):
+    """``(dx, dscale)`` of :func:`rms_norm` at ``x`` for the output
+    gradient ``dy``."""
     if _on_cuda(x):
-        return _rms_norm_cuda(x, scale, eps)
-    return rms_norm_reference(x, scale, eps)
+        return _rms_norm_bwd_cuda(x, scale, dy, eps)
+    return rms_norm_backward_reference(x, scale, dy, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with its fused backward, as the JAX package's custom VJP:
+    the forward saves only ``(x, scale)``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if _on_cuda(x):
+            return _rms_norm_cuda(x, scale, eps)
+        return rms_norm_reference(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_backward(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+def rms_norm(x, scale, eps: float = DEFAULT_EPS):
+    """RMSNorm over the last axis.  ``x``: ``[..., E]``; ``scale``: ``[E]``.
+    Differentiable in both."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 class FusedRMSNorm(nn.Module):
     """RMSNorm module with one ``scale`` parameter, as the JAX package's
-    ``FusedRMSNorm``: casts x to ``dtype`` first, then runs the kernel
+    ``FusedRMSNorm``: casts x to ``dtype`` first, then runs the kernels
     (``use_fused=True``) or the plain version."""
 
     def __init__(self, dim: int, dtype=torch.float32,

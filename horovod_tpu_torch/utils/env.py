@@ -1,10 +1,10 @@
-"""``HVD_TPU_SERVE_*`` environment knobs the serving port reads.
+"""Environment knobs the port reads: tensor fusion and ``HVD_TPU_SERVE_*``.
 
-Own copy of the serving readers of ``horovod_tpu/utils/env.py``, with the
-same names, defaults and parsing: each knob is looked up as
-``HOROVOD_<name>`` first, then ``HVD_TPU_<name>``; unset gives the
-default, and a malformed value gives the default with a warning — a bad
-knob never takes a serving replica down.
+Own copy of the fusion and serving readers of ``horovod_tpu/utils/env.py``,
+with the same names, defaults and parsing: each knob is looked up as
+``HOROVOD_<name>`` first, then ``HVD_TPU_<name>``.  For the serving knobs,
+unset gives the default, and a malformed value gives the default with a
+warning — a bad knob never takes a serving replica down.
 """
 
 from __future__ import annotations
@@ -13,11 +13,23 @@ import os
 import warnings
 
 DEFAULT_BUCKETS = (16, 32, 64, 128)
+DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+# Fused buckets are padded to a multiple of this many elements.  The JAX
+# package pads to the TPU lane width; the port keeps 128 so that both plan
+# the same buckets for the same gradients.
+FUSION_BUFFER_ATOMIC_UNIT = 128
 
 
 def _get(name: str, default: str | None = None) -> str | None:
     return os.environ.get("HOROVOD_" + name,
                           os.environ.get("HVD_TPU_" + name, default))
+
+
+def fusion_threshold_bytes() -> int:
+    """``HOROVOD_FUSION_THRESHOLD`` — byte budget of one fused bucket
+    (default 64 MiB)."""
+    raw = _get("FUSION_THRESHOLD")
+    return int(raw) if raw else DEFAULT_FUSION_THRESHOLD
 
 
 def _serve_number(name: str, default, cast, floor=None):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips on a machine without a CUDA device.  On
-one with a card, ``python -m pytest tests/test_torch_cuda_kernels.py``
-builds the kernels from ``horovod_tpu_torch/csrc`` and runs them.
+one with a card, ``python -m pytest --noconftest
+tests/test_torch_cuda_kernels.py`` builds the kernels from
+``horovod_tpu_torch/csrc`` and runs them.
 """
 
 import pytest
@@ -14,28 +15,52 @@ from horovod_tpu_torch.ops import rmsnorm as trn
 
 pytestmark = pytest.mark.cuda
 
+FLASH_CASES = [   # (S_q, S_k, causal, q_offset, k_offset, head_dim)
+    (64, 64, True, 0, 0, 64), (200, 200, True, 0, 0, 128),
+    (100, 300, True, 200, 0, 128), (130, 70, False, 0, 0, 64),
+    (64, 64, True, 0, 100, 128)]
+
 
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     for k in _build.KERNELS.values():
         k.load()
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s_q,s_k,causal,q_off,k_off,d", [
-    (64, 64, True, 0, 0, 64), (200, 200, True, 0, 0, 128),
-    (100, 300, True, 200, 0, 128), (130, 70, False, 0, 0, 64),
-    (64, 64, True, 0, 100, 128)])
-def test_flash_kernel_matches_plain(cuda, dtype, atol, s_q, s_k, causal,
-                                    q_off, k_off, d):
-    g = torch.Generator(device=cuda).manual_seed(0)
+def _close(got, want, dtype):
+    """f32: the kernels and the plain versions differ in summation order
+    only.  bf16: each rounds its f32 sums to bf16 once (ulp 2**-8 relative),
+    and ds, rounded to bf16 before its products, can round the other way
+    where the two f32 values straddle a rounding boundary; a gradient sums
+    up to S such terms, so the bound scales with its magnitude."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=1.6e-2)
+
+
+def _qkv(cuda, dtype, s_q, s_k, d, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn(2, s_q, 3, d, generator=g, device=cuda, dtype=dtype)
     k, v = (torch.randn(2, s_k, 3, d, generator=g, device=cuda, dtype=dtype)
             for _ in range(2))
+    return q, k, v, torch.randn(2, s_q, 3, d, generator=g, device=cuda,
+                                dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s_q,s_k,causal,q_off,k_off,d", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, atol, s_q, s_k, causal,
+                                    q_off, k_off, d):
+    q, k, v, _ = _qkv(cuda, dtype, s_q, s_k, d)
     before = tfa.KERNEL.launches
     out, lse = tfa.flash_attention_with_lse(q, k, v, causal, q_off, k_off)
     ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, causal, q_off,
@@ -49,6 +74,48 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, s_q, s_k, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k,causal,q_off,k_off,d", FLASH_CASES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, s_q, s_k, causal,
+                                            q_off, k_off, d):
+    q, k, v, dout = _qkv(cuda, dtype, s_q, s_k, d, seed=1)
+    out, lse = tfa.flash_attention_with_lse(q, k, v, causal, q_off, k_off)
+    delta = (dout.float() * out.float()).sum(-1)
+    before = (tfa.DQ_KERNEL.launches, tfa.DKV_KERNEL.launches)
+    got = tfa.flash_attention_backward(q, k, v, dout, lse, delta, causal,
+                                       q_off, k_off)
+    want = tfa.flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                                  causal, q_off, k_off)
+    torch.cuda.synchronize()
+    assert (tfa.DQ_KERNEL.launches, tfa.DKV_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        _close(g, w, dtype)
+    if causal and k_off > q_off:   # rows that saw no key: zero gradient
+        empty = k_off - q_off
+        assert torch.all(got[0][:, :empty] == 0)
+
+
+def test_flash_autograd_runs_the_kernels(cuda):
+    q, k, v, dout = _qkv(cuda, torch.bfloat16, 128, 128, 128, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = [t.launches for t in (tfa.KERNEL, tfa.DQ_KERNEL,
+                                   tfa.DKV_KERNEL)]
+    out = tfa.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert [t.launches for t in (tfa.KERNEL, tfa.DQ_KERNEL,
+                                 tfa.DKV_KERNEL)] == [b + 1 for b in before]
+    lse = tfa.flash_attention_with_lse(q.detach(), k.detach(),
+                                       v.detach())[1]
+    delta = (dout.float() * out.detach().float()).sum(-1)
+    want = tfa.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), dout, lse, delta)
+    for g, w in zip(grads, want):
+        _close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,e", [(1, 768), (1000, 768), (37, 384)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, e):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -59,3 +126,25 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, e):
     tol = 1e-5 if dtype == torch.float32 else 1.6e-2
     torch.testing.assert_close(y.float(), trn.rms_norm_reference(
         x, scale).float(), atol=1e-5, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e", [(1, 768), (1000, 768), (8192, 768),
+                                 (37, 384)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, dtype, n, e):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(n, e, generator=g, device=cuda, dtype=dtype)
+    dy = torch.randn(n, e, generator=g, device=cuda, dtype=dtype)
+    scale = 1 + 0.1 * torch.randn(e, generator=g, device=cuda)
+    before = trn.BWD_KERNEL.launches
+    dx, dscale = trn.rms_norm_backward(x, scale, dy)
+    want_dx, want_dscale = trn.rms_norm_backward_reference(x, scale, dy)
+    torch.cuda.synchronize()
+    assert trn.BWD_KERNEL.launches == before + 1
+    assert dx.dtype == dtype and dscale.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=1e-4,
+                               rtol=tol)
+    # dscale sums N f32 terms in another order: relative to sqrt(N).
+    torch.testing.assert_close(dscale, want_dscale, atol=1e-4 * n ** 0.5,
+                               rtol=1e-5)

@@ -3,6 +3,7 @@
 tensor launches its kernel or raises, and a build failure raises."""
 
 import ast
+import contextlib
 import json
 import os
 import pkgutil
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import horovod_tpu_torch
+from horovod_tpu_torch import basics
 from horovod_tpu_torch.models import transformer as ttm
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import flash_attention as tfa
@@ -85,33 +87,93 @@ def test_model_entry_points_default_to_cuda(monkeypatch):
     assert ttm.init_kv_cache(cfg, 1, 4, device="cpu")[0].device.type == "cpu"
 
 
-def test_cuda_flash_wrapper_raises_on_requires_grad(monkeypatch):
-    # Treat these CPU tensors as CUDA ones: the wrapper must refuse to run
-    # a forward whose backward is not ported, not fall back.
+class _FakeKernel:
+    """Stands in for a built kernel on this CPU host: counts launches the
+    way ``_build.Kernel.__call__`` does, and launches nothing."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, *args):
+        self.launches += 1
+
+
+def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
+    # Treat these CPU tensors as CUDA ones, with the kernels stubbed: a
+    # requires_grad input goes through the autograd.Function, whose
+    # backward launches both backward kernels, and never falls back.
     monkeypatch.setattr(tfa, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tfa._build, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    fakes = {name: _FakeKernel() for name in ("KERNEL", "DQ_KERNEL",
+                                              "DKV_KERNEL")}
+    for name, fake in fakes.items():
+        monkeypatch.setattr(tfa, name, fake)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
     k, v = torch.randn(1, 8, 2, 64), torch.randn(1, 8, 2, 64)
-    with pytest.raises(RuntimeError, match="backward"):
-        tfa.flash_attention(q, k, v)
-    launches = tfa.KERNEL.launches
+    out = tfa.flash_attention(q, k, v)
+    assert "_Flash" in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert [f.launches for f in fakes.values()] == [1, 1, 1]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tfa.flash_attention_with_lse(q, k, v)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(*(torch.randn(1, 8, 2, 16) for _ in range(3)))
+        tfa.flash_attention(*(torch.randn(1, 8, 2, 16, requires_grad=True)
+                              for _ in range(3)))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(*(torch.randn(1, 8, 2, 64).half()
                               for _ in range(3)))
+    with pytest.raises(ValueError, match="delta must be"):
+        tfa.flash_attention_backward(q.detach(), k, v, k,
+                                     torch.zeros(1, 8, 2),
+                                     torch.zeros(1, 8, 3))
+    monkeypatch.setattr(torch.Tensor, "is_cuda",
+                        property(lambda t: t is not k))
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.flash_attention(q.detach(), k, v)
-    assert tfa.KERNEL.launches == launches
+    assert [f.launches for f in fakes.values()] == [1, 1, 1]
 
 
-def test_cuda_rmsnorm_wrapper_raises_on_requires_grad(monkeypatch):
+def test_cuda_rmsnorm_wrapper_trains_through_the_backward_kernel(monkeypatch):
     monkeypatch.setattr(trn, "_on_cuda", lambda t: True)
-    x = torch.randn(4, 32)
+    monkeypatch.setattr(trn._build, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    fwd, bwd = _FakeKernel(), _FakeKernel()
+    monkeypatch.setattr(trn, "KERNEL", fwd)
+    monkeypatch.setattr(trn, "BWD_KERNEL", bwd)
+    x = torch.randn(4, 32, requires_grad=True)
     scale = torch.ones(32, requires_grad=True)
-    with pytest.raises(RuntimeError, match="backward"):
-        trn.rms_norm(x, scale)
+    y = trn.rms_norm(x, scale)
+    y.sum().backward()
+    assert x.grad.shape == x.shape and scale.grad.shape == scale.shape
+    assert (fwd.launches, bwd.launches) == (1, 1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        trn.rms_norm(x.half(), scale.detach())
+        trn.rms_norm(x.detach().half(), scale.detach())
+    with pytest.raises(ValueError, match="at most"):
+        trn.rms_norm_backward(torch.randn(2, trn.MAX_BWD_WIDTH + 1),
+                              torch.ones(trn.MAX_BWD_WIDTH + 1),
+                              torch.randn(2, trn.MAX_BWD_WIDTH + 1))
+    assert (fwd.launches, bwd.launches) == (1, 1)
+
+
+def test_process_identity_before_init_raises(monkeypatch):
+    monkeypatch.setattr(basics, "_topology", None)
+    for fn in (horovod_tpu_torch.rank, horovod_tpu_torch.size,
+               horovod_tpu_torch.num_chips, basics.device):
+        with pytest.raises(horovod_tpu_torch.NotInitializedError):
+            fn()
+
+
+def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(basics, "_topology", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horovod_tpu_torch.init()
+    assert not horovod_tpu_torch.is_initialized()
 
 
 def test_build_failure_propagates(monkeypatch, tmp_path):
@@ -154,6 +216,8 @@ def test_library_name_follows_source_and_flags():
     path = k.library_path()
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     assert os.path.basename(path).startswith("flash_fwd-")
-    assert sorted(_build.KERNELS) == ["flash_fwd", "rmsnorm_fwd"]
+    assert sorted(_build.KERNELS) == ["flash_bwd_dkv", "flash_bwd_dq",
+                                      "flash_fwd", "rmsnorm_bwd",
+                                      "rmsnorm_fwd"]
     for k in _build.KERNELS.values():
         assert os.path.exists(k.source)

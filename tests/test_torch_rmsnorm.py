@@ -66,3 +66,59 @@ def test_module_matches_flax_module(use_fused):
         got = tmod(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=1e-5, rtol=1e-5)
+
+
+def _jax_grads(x, s, dy):
+    def f(x, s):
+        return jnp.sum(jrn.rms_norm(x, s).astype(jnp.float32) * dy)
+    return jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(s))
+
+
+def _torch_grads(x, s, dy, dtype=torch.float32):
+    tx = torch.from_numpy(x).to(dtype).requires_grad_()
+    ts = torch.from_numpy(s).requires_grad_()
+    y = trn.rms_norm(tx, ts)
+    return torch.autograd.grad(y, (tx, ts), torch.from_numpy(dy).to(dtype))
+
+
+# (shape): one block, rows that are no multiple of any block (the JAX
+# kernel pads 300 rows to 512), and leading batch dims.
+@pytest.mark.parametrize("shape", [(64, 256), (300, 384), (2, 50, 96)])
+def test_backward_matches_jax_grad(shape):
+    x, s = _inputs(int(np.prod(shape[:-1])), shape[-1], seed=3)
+    x = x.reshape(shape)
+    dy = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    jdx, jds = _jax_grads(x, s, dy)
+    dx, ds = _torch_grads(x, s, dy)
+    assert dx.shape == shape and ds.shape == s.shape
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds),
+                               atol=2e-4, rtol=2e-4)
+
+
+def test_backward_keeps_x_and_scale_dtypes():
+    x, s = _inputs(40, 64, seed=5)
+    dy = np.random.default_rng(6).standard_normal(x.shape).astype(np.float32)
+    dx, ds = _torch_grads(x, s, dy, torch.bfloat16)
+    assert dx.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    jdx, jds = jax.grad(
+        lambda x, s: jnp.sum(jrn.rms_norm(x, s).astype(jnp.float32) * dy),
+        argnums=(0, 1))(jnp.asarray(x, jnp.bfloat16), jnp.asarray(s))
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(jdx, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_plain_backward_is_the_autograd_of_the_plain_forward():
+    x, s = _inputs(33, 48, seed=7)
+    dy = torch.from_numpy(
+        np.random.default_rng(8).standard_normal(x.shape).astype(np.float32))
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.from_numpy(s).requires_grad_()
+    want = torch.autograd.grad(trn.rms_norm_reference(tx, ts), (tx, ts), dy)
+    got = trn.rms_norm_backward_reference(tx.detach(), ts.detach(), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

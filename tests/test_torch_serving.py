@@ -31,6 +31,7 @@ from horovod_tpu_torch.serving.engine import (ServingConfig, ServingEngine,
                                               StubBackend,
                                               TransformerBackend)
 from horovod_tpu_torch.serving.prefix_cache import PrefixCache
+from horovod_tpu_torch.utils import trace
 from horovod_tpu_torch.utils import env as tenv
 
 jfa = importlib.import_module("horovod_tpu.ops.flash_attention")
@@ -358,14 +359,17 @@ def test_cache_write_past_slot_raises(models):
 
 def test_breakdown_counts_device_time_once_and_by_kind(monkeypatch):
     # Overlapping intervals count once; kernels sort by their names.
-    assert breakdown.busy_us([{"ts": 0, "dur": 5}, {"ts": 3, "dur": 4},
-                              {"ts": 10, "dur": 1}, {"ts": 1, "dur": 2}]) \
-        == 8.0
-    assert [breakdown.kind_of(n) for n in (
+    assert trace.busy_us([{"ts": 0, "dur": 5}, {"ts": 3, "dur": 4},
+                          {"ts": 10, "dur": 1}, {"ts": 1, "dur": 2}]) == 8.0
+    assert [trace.kind_of(n) for n in (
         "void flash_fwd_kernel<__nv_bfloat16, 128>",
-        "void rmsnorm_fwd_kernel<float>", "nvjet_tst_64x8_64x16",
-        "sm90_xmma_gemm_bf16bf16", "softmax_warp_forward")] == \
-        ["flash_fwd", "rmsnorm_fwd", "matmul", "matmul", "other"]
+        "void (anonymous namespace)::flash_bwd_dq_kernel<float, 64>",
+        "void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64>",
+        "void rmsnorm_fwd_kernel<float>", "void rmsnorm_bwd_kernel<float>",
+        "nvjet_tst_64x8_64x16", "sm90_xmma_gemm_bf16bf16",
+        "softmax_warp_forward")] == \
+        ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm_fwd",
+         "rmsnorm_bwd", "matmul", "matmul", "other"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         breakdown.main([])

@@ -1,7 +1,8 @@
 """Port's decoder transformer against the JAX package's flax model, with the
 same weights carried across by ``params_from_flax``, in an f32 config with
 the flash-attention and RMSNorm kernels on (their plain paths here; the
-JAX side runs its Pallas kernels in interpret mode)."""
+JAX side runs its Pallas kernels in interpret mode): the forward, the
+serving paths, and the training loss with every parameter's gradient."""
 
 import importlib
 
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from horovod_tpu.models import transformer as jtm
+from horovod_tpu.ops import losses as jlosses
+from horovod_tpu_torch import train_transformer
 from horovod_tpu_torch.models import convert
 from horovod_tpu_torch.models import transformer as ttm
 
@@ -54,6 +57,34 @@ def test_full_forward_matches_jax(pair, b, s):
         got = tmodel(torch.from_numpy(toks))
     assert got.shape == (b, s, 64) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_loss_and_every_gradient_match_jax(pair):
+    jmodel, params, tmodel = pair
+    toks = _tokens(2, 13, seed=9)   # 13: no multiple of the JAX tiles
+
+    def jax_loss(p):
+        logits = jmodel.apply(p, jnp.asarray(toks))
+        return jlosses.softmax_cross_entropy(
+            logits[:, :-1], jnp.asarray(toks)[:, 1:]).mean()
+
+    want_loss, jgrads = jax.value_and_grad(jax_loss)(params)
+    # The gradient tree crosses over as the weights do.
+    want = convert.params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jgrads), tmodel.cfg)
+    tmodel.zero_grad(set_to_none=True)
+    loss = train_transformer.loss_fn(tmodel, torch.from_numpy(toks).long())
+    loss.backward()
+    try:
+        # The JAX suite's bound for gradients through the flash kernels.
+        np.testing.assert_allclose(loss.item(), float(want_loss),
+                                   atol=5e-4, rtol=5e-4)
+        assert set(want) == {n for n, _ in tmodel.named_parameters()}
+        for name, p in tmodel.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                       atol=5e-4, rtol=5e-4, err_msg=name)
+    finally:
+        tmodel.zero_grad(set_to_none=True)
 
 
 def test_prefill_kv_matches_jax(pair):
