@@ -9,39 +9,61 @@
 //
 // where q~ is q folded with scale * log2(e) and rounded to the input dtype
 // exactly as the forward folds it; the log2(e) the fold puts into dk is
-// repaid by the ln(2) applied once at the end.  As in the TPU kernel, p
-// stays f32 in the dv product (dO is widened to f32), ds is rounded to the
-// input dtype before its product with q~, both sums accumulate in f32, and
-// the results are cast to the input dtype.  Rows whose lse is NEG_INF
-// attended to nothing and get p = 0 (exp2 would overflow there).
+// repaid by the ln(2) applied once at the end.  As in the TPU kernel, ds is
+// rounded to the input dtype before its product with q~, both sums
+// accumulate in f32, and the results are cast to the input dtype.  Rows
+// whose lse is NEG_INF attended to nothing and get p = 0 (exp2 would
+// overflow there).  Masking follows the TPU kernel: a key at global
+// position k_offset + j is visible to the query at q_offset + i iff j < Sk
+// and (not causal or q_offset + i >= k_offset + j).
 //
 // What bounds it on the H100: per visible (q, k) pair it does four
 // products of 2*D operations (s, dp, dv and dk) against ~D*2 bytes per
 // position of bf16 q, k, v, dO, dk and dv, so at S = 1024 and D = 128 the
-// tensor cores bound it.  This first version does its products on the CUDA
-// cores in f32 (67 TFLOP/s peak), so its own issue rate, not either bound,
-// is what it pays; it is written to be right and simple:
+// tensor cores (989 TFLOP/s in bf16) bound it; products on the CUDA cores
+// (67 TFLOP/s in f32) cannot come near.
 //
-// * one block per (64-key tile, batch*head); a loop inside the block over
-//   64-row Q/dO tiles (lse and delta alongside) takes the place of the
-//   TPU's sequential Q grid axis, and the dk and dv tiles stay in
-//   registers until they are written once: no atomics, so the result is
-//   deterministic.  Splitting dq from dk/dv into two passes is what keeps
-//   either pass free of reductions across blocks;
-// * the block's K and V tile is loaded once; Q and dO tiles go through
-//   shared memory once per block, read in place from the [B, S, H, D]
-//   layout; q tiles entirely above the causal diagonal are skipped;
-// * each warp owns 8 keys and updates them 4 at a time, so one shared load
-//   of q~ or dO feeds 4 keys' FMAs.
+// bf16, the tensor-core route (namespace tc):
 //
-// Masking follows the TPU kernel: a key at global position k_offset + j is
-// visible to the query at q_offset + i iff j < Sk and (not causal or
-// q_offset + i >= k_offset + j).
+// * one block per (64-key tile, batch*head), the first key tiles (which
+//   see the most causal queries) issued first; the block's K and V tiles
+//   stay resident in shared memory, and dk and dv accumulate in registers
+//   and are written once: no atomics, so the result is deterministic.
+//   Splitting dq from dk/dv into two passes keeps either pass free of
+//   reductions across blocks;
+// * a producer warp streams 64-row q and dO tiles through a two-stage TMA /
+//   mbarrier ring, with lse * log2(e) (+inf on rows that attended to
+//   nothing or lie past S_q, so that p = exp2(-inf) = 0 there) and delta
+//   beside them; one consumer warpgroup folds each q tile in shared memory
+//   (multiply, round to bf16) before its products;
+// * the scores come out transposed, keys as wgmma's M dimension:
+//   S^T = K.q~^T and dP^T = V.dO^T, both from shared memory (K-major as the
+//   tiles lie), so P^T and dS^T are born in registers in the layout of
+//   wgmma's A operand: dV += P^T.dO and dK += dS^T.q~ take them from
+//   registers, with dO and q~ from shared memory through the transpose bit.
+//   P never goes through shared memory;
+// * q tiles wholly above the causal diagonal are skipped; only tiles that
+//   straddle it, or the ragged end of the keys, are masked.
+//
+// Where p is rounded: p stays f32 in ds (as in the plain version), and is
+// rounded to bf16 once, as the A operand of dV += P^T.dO: the single bf16
+// MXU pass the TPU kernel's f32 p . dO product takes
+// (horovod_tpu/ops/flash_attention.py:142-146, :560-564).
+//
+// float32, the CUDA-core route (chosen by dtype, never on failure): f32
+// inputs cannot meet the f32 checks' 1e-4 through bf16 tensor-core
+// products, so they keep the first version's design: one block per (64-key
+// tile, batch*head) looping over 64-row Q/dO tiles staged through shared
+// memory in f32; each warp owns 8 keys and updates them 4 at a time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---- float32: CUDA cores -------------------------------------------------
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -54,19 +76,13 @@ constexpr int kKeysPerWarp = kBK / kWarps;   // 8
 constexpr int kR = 4;                        // keys updated together
 constexpr int kGroups = kKeysPerWarp / kR;   // 2
 
+// This route takes float32 only; the conversions keep its body generic.
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
 
 // Rounds an f32 value to T and back: the TPU kernel's operand cast.
 template <typename T>
@@ -264,13 +280,259 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16: tensor cores --------------------------------------------------
+
+namespace tc {
+
+using namespace hvd_sm90;
+
+constexpr int kStages = 2;   // q / dO ring depth
+
+template <int D>
+struct Smem {
+  static constexpr int kChunks = D / 64;
+  static constexpr uint32_t kTile = kChunks * kChunkBytes;   // 64 rows
+  static constexpr uint32_t kK = 0, kV = kTile;              // resident
+  static constexpr uint32_t kStage0 = 2 * kTile;             // q~, dO
+  static constexpr uint32_t kStats = kStage0 + kStages * 2 * kTile;
+  static constexpr uint32_t kBars = kStats + kStages * 2 * 64 * 4;
+  // kv_full, full[kStages], empty[kStages]; 1024 bytes of alignment slack.
+  static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(160, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+           const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap,
+           const __grid_constant__ CUtensorMap omap,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+           int H, int Sq, int Sk, int causal, int q_offset, int k_offset,
+           float qscale) {
+  using L = Smem<D>;
+  constexpr int kChunks = L::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kBars;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + kStages + s); };
+  auto q_tile = [&](int s) { return L::kStage0 + 2 * s * L::kTile; };
+  auto stats = [&](int s) {   // lse * log2(e) [64], then delta [64]
+    return reinterpret_cast<float*>(smem + L::kStats + s * 2 * 64 * 4);
+  };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // q tile t holds positions q_offset + 64t .. + 63; under the causal mask
+  // the ones whose last row lies before this block's first key see none of
+  // its keys and are skipped.
+  const int n_q_tiles = (Sq + 63) / 64;
+  int t_start = 0;
+  if (causal) {
+    const int lead = k_offset + k0 - q_offset;
+    t_start = lead > 0 ? min(lead / 64, n_q_tiles) : 0;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);   // every producer lane writes stats
+      mbar_init(empty(s), 4);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kTile);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(base + L::kK + c * kChunkBytes, &kmap, kv_full, 64 * c, h,
+                 k0, b);
+        tma_load(base + L::kV + c * kChunkBytes, &vmap, kv_full, 64 * c, h,
+                 k0, b);
+      }
+    }
+    for (int t = t_start, it = 0; t < n_q_tiles; ++t, ++it) {
+      const int s = it % kStages;
+      if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
+      float* st = stats(s);
+      for (int r = lane; r < 64; r += 32) {
+        const int qi = 64 * t + r;
+        float l2 = __int_as_float(0x7f800000), dl = 0.f;   // +inf, 0
+        if (qi < Sq) {
+          const long at = ((long)b * Sq + qi) * H + h;
+          const float lv = lse[at];
+          if (lv > kNegInf / 2) l2 = lv * kLog2e;
+          dl = delta[at];
+        }
+        st[r] = l2;
+        st[64 + r] = dl;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full(s), 2 * L::kTile);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(base + q_tile(s) + c * kChunkBytes, &qmap, full(s),
+                   64 * c, h, 64 * t, b);
+          tma_load(base + q_tile(s) + L::kTile + c * kChunkBytes, &omap,
+                   full(s), 64 * c, h, 64 * t, b);
+        }
+      } else {
+        mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: this thread holds keys kr and kr + 8.
+  const int kr = k0 + 16 * warp + lane / 4;
+  float dka[D / 2], dva[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int t = t_start, it = 0; t < n_q_tiles; ++t, ++it) {
+    const int st = it % kStages;
+    mbar_wait(full(st), (it / kStages) & 1);
+    const uint32_t qt = base + q_tile(st), ot = qt + L::kTile;
+    fold_tile(smem + q_tile(st), L::kTile, threadIdx.x, 128, qscale);
+    fence_proxy_async();
+    named_bar_sync<1>(128);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
+      wgmma_ss_m64n64k16(s, desc_k_major(base + L::kK + off),
+                         desc_k_major(qt + off), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
+      wgmma_ss_m64n64k16(dp, desc_k_major(base + L::kV + off),
+                         desc_k_major(ot + off), kk > 0);
+    }
+    wgmma_commit();
+
+    // P^T while dP^T is still in flight.
+    wgmma_wait<1>();
+    fence_regs(s);
+    const int q0 = 64 * t;
+    const float* sts = stats(st);
+    const bool masked =
+        k0 + 64 > Sk || (causal && q_offset + q0 < k_offset + k0 + 63);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = acc_col(i, lane);
+      float p = exp2f(s[i] - sts[c]);
+      if (masked) {
+        const int key = kr + 8 * acc_half(i);
+        if (!(key < Sk && (!causal || q_offset + q0 + c >= k_offset + key)))
+          p = 0.f;
+      }
+      s[i] = p;
+    }
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = s[i] * (dp[i] - sts[64 + acc_col(i, lane)]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dsa[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d_o = desc_mn_major(ot + kk * 16 * 128);
+      const uint64_t d_q = desc_mn_major(qt + kk * 16 * 128);
+      if constexpr (D == 128) {
+        wgmma_rs_m64n128k16_tb(dva, pa[kk], d_o);
+        wgmma_rs_m64n128k16_tb(dka, dsa[kk], d_q);
+      } else {
+        wgmma_rs_m64n64k16_tb(dva, pa[kk], d_o);
+        wgmma_rs_m64n64k16_tb(dka, dsa[kk], d_q);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pa);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(empty(st));   // this warp is done with st
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kr + 8 * r;
+    if (key >= Sk) continue;
+    const long at = (((long)b * Sk + key) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = acc_col(4 * j, lane);
+      *reinterpret_cast<uint32_t*>(dk + at + c) = pack_bf16(
+          dka[4 * j + 2 * r] * kLn2, dka[4 * j + 2 * r + 1] * kLn2);
+      *reinterpret_cast<uint32_t*>(dv + at + c) =
+          pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv, int B,
+           int H, int Sq, int Sk, int causal, int q_offset, int k_offset,
+           float qscale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  // With no queries, the q and dO maps are never read: describe k instead.
+  const bool no_q = Sq == 0;
+  int rc = make_bshd_map(&km, k, B, Sk, H, D);
+  if (!rc) rc = make_bshd_map(&vm, v, B, Sk, H, D);
+  if (!rc) rc = make_bshd_map(&qm, no_q ? k : q, B, no_q ? Sk : Sq, H, D);
+  if (!rc) rc = make_bshd_map(&om, no_q ? k : dout, B, no_q ? Sk : Sq, H, D);
+  if (rc) return rc;
+  constexpr uint32_t smem = Smem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Sk + 63) / 64);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, 160, smem, stream>>>(
+      qm, km, vm, om, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Sq, Sk, causal, q_offset, k_offset,
+      qscale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dk and dv of that
-// dtype, [B, S, H, D] contiguous; lse and delta float32 [B, Sq, H].  qscale
-// is D**-0.5 * log2(e), rounded to float by the caller.  Returns a
-// cudaError_t, or -1 for a dtype/head_dim combination this kernel was not
-// built for.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v,
+// dout, dk and dv of that dtype, [B, S, H, D] contiguous; lse and delta
+// float32 [B, Sq, H].  qscale is D**-0.5 * log2(e), rounded to float by the
+// caller.  Returns a cudaError_t, or -1 for a dtype/head_dim combination
+// this kernel was not built for.
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
@@ -283,8 +545,8 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+    return tc::launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+    return tc::launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   return -1;
 }

@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/horovod_tpu_torch/``
 of the checkout, at first use, and loaded with ``ctypes``.  The library's
-file name carries a hash of its source, so an edited kernel is rebuilt and
-a stale one is never loaded.  :meth:`Kernel.load` is the only build path;
-a caller that wants the kernels built in parallel calls it from one thread
-per kernel (each ``nvcc`` is its own process).
+file name carries a hash of its source, of every ``csrc`` header it
+includes (``#include "x.cuh"``, followed through headers) and of every
+flag in :data:`NVCC_FLAGS`, so an edited kernel or shared header is
+rebuilt and a stale library is never loaded.  :meth:`Kernel.load` is the
+only build path; a caller that wants the kernels built in parallel calls
+it from one thread per kernel (each ``nvcc`` is its own process).
 
 Nothing here falls back: a missing ``nvcc``, a compile error, a load error
 or a non-zero return from a kernel raises :class:`RuntimeError`.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "horovod_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"   # the toolkit's default location
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -53,9 +57,26 @@ class Kernel:
         self._fn = None
         self._lock = threading.Lock()
 
+    def sources(self) -> list[str]:
+        """The ``.cu`` file and every header of its directory that it
+        includes, directly or through another header, in include order."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in found or not os.path.exists(path):
+                continue
+            found.append(path)
+            with open(path, "rb") as f:
+                todo += [os.path.join(os.path.dirname(path), m.decode())
+                         for m in _INCLUDE.findall(f.read())]
+        return found
+
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for path in self.sources():
+            with open(path, "rb") as f:
+                digest.update(os.path.basename(path).encode() + b"\0" +
+                              f.read())
         return os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:12]}.so")
 
     def _compile(self, out: str) -> None:

@@ -14,11 +14,26 @@ JAX package's public one, over ``[B, S, H, D]`` tensors:
   f32, :data:`NEG_INF` for a row that attended to nothing;
 * the backward recomputes ``p = exp2(s - lse * log2(e))`` from the saved
   lse (0 on rows that attended to nothing), rounds ``ds = p * (dp - Δ)`` to
-  the input dtype before both of its products, keeps p in f32 for dv, and
-  applies ``scale`` to dq and ``ln 2`` to dk once, at the end.
+  the input dtype before both of its products, keeps p in f32 for dv (the
+  bf16 kernels: below), and applies ``scale`` to dq and ``ln 2`` to dk
+  once, at the end.
 
 A CUDA tensor launches the kernels (float32 or bfloat16, ``head_dim`` 64 or
-128) or raises; a CPU tensor takes the plain versions.
+128) or raises; a CPU tensor takes the plain versions.  On the card the
+route follows the dtype: float32 runs every product on the CUDA cores in
+f32; bfloat16 runs the forward and dk/dv kernels on the tensor cores, whose
+operands are bf16, so p is carried there as follows (the plain versions
+keep f32 p, the JAX contract; ``l`` sums the f32 p in both):
+
+* forward ``p·V``: p enters as two bf16 terms, ``bf16(p)`` and
+  ``bf16(p - bf16(p))`` (~16 significant bits), so the output agrees with
+  the f32-p product to f32 rounding;
+* dk/dv ``pᵀ·dO``: p is rounded to bf16 once, the single bf16 MXU pass
+  that the TPU kernel's f32 ``p·dO`` product takes
+  (``horovod_tpu/ops/flash_attention.py:142-146``, ``:560-564``); ds is
+  formed from the f32 p.
+
+The dq kernel still runs on the CUDA cores in both dtypes.
 :func:`flash_attention` is differentiable on every device through
 :class:`_Flash`; :func:`flash_attention_with_lse` is forward-only, as in
 the JAX package, and :func:`flash_attention_backward` takes lse and Δ

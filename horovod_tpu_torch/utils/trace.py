@@ -19,9 +19,10 @@ from collections import defaultdict
 import torch
 
 # Substrings of kernel names, first match wins.
-KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
+KINDS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
          ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-         ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+         ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                            "flash_bwd_dkv_wgmma_kernel")),
          ("rmsnorm_fwd", ("rmsnorm_fwd_kernel",)),
          ("rmsnorm_bwd", ("rmsnorm_bwd_kernel",)),
          ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))

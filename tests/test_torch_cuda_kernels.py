@@ -18,7 +18,15 @@ pytestmark = pytest.mark.cuda
 FLASH_CASES = [   # (S_q, S_k, causal, q_offset, k_offset, head_dim)
     (64, 64, True, 0, 0, 64), (200, 200, True, 0, 0, 128),
     (100, 300, True, 200, 0, 128), (130, 70, False, 0, 0, 64),
-    (64, 64, True, 0, 100, 128)]
+    (64, 64, True, 0, 100, 128)] + [
+    # The edges of the tensor-core kernels' tiles (64-key K tiles, 64- or
+    # 128-row q tiles), at both head dims: S not a multiple of 128; one and
+    # 37 queries at the end of their keys; fewer keys than one K tile; and
+    # k_offset > q_offset, where the first rows see no key.
+    case for d in (64, 128) for case in (
+        (1000, 1000, True, 0, 0, d), (1, 300, True, 299, 0, d),
+        (37, 300, True, 263, 0, d), (50, 30, True, 20, 0, d),
+        (100, 40, False, 0, 0, d), (100, 80, True, 0, 37, d))]
 
 
 @pytest.fixture()
@@ -94,6 +102,20 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, s_q, s_k, causal,
     if causal and k_off > q_off:   # rows that saw no key: zero gradient
         empty = k_off - q_off
         assert torch.all(got[0][:, :empty] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_kernel_is_deterministic(cuda, dtype):
+    # dk and dv accumulate in registers and are written once (no atomics):
+    # two launches on the same inputs agree bit for bit.
+    q, k, v, dout = _qkv(cuda, dtype, 1000, 1000, 128, seed=3)
+    out, lse = tfa.flash_attention_with_lse(q, k, v)
+    delta = (dout.float() * out.float()).sum(-1)
+    first = tfa.flash_bwd_dkv(q, k, v, dout, lse, delta)
+    second = tfa.flash_bwd_dkv(q, k, v, dout, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_runs_the_kernels(cuda):

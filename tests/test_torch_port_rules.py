@@ -7,6 +7,7 @@ import contextlib
 import json
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 
@@ -209,6 +210,31 @@ def test_failed_launch_raises_and_is_not_counted(rc, match):
     kernel._fn = lambda *args: 0
     kernel()
     assert kernel.launches == 1
+
+
+def test_library_name_follows_included_headers_and_flags(monkeypatch,
+                                                          tmp_path):
+    # An edited shared header must rebuild every kernel that includes it.
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    kernel = _build.Kernel("flash_fwd", "hvd_flash_fwd", [])
+    assert [os.path.basename(p) for p in kernel.sources()] == [
+        "flash_fwd.cu", "hopper.cuh"]
+    norm = _build.Kernel("rmsnorm_fwd", "hvd_rmsnorm_fwd", [])
+    before, norm_before = kernel.library_path(), norm.library_path()
+    (csrc / "unrelated.cuh").write_text("// included by no kernel\n")
+    assert kernel.library_path() == before
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    edited = kernel.library_path()
+    assert edited != before
+    assert os.path.basename(edited).startswith("flash_fwd-")
+    assert norm.library_path() == norm_before   # includes no header
+    monkeypatch.setattr(_build, "NVCC_FLAGS",
+                        _build.NVCC_FLAGS + ("-lineinfo",))
+    assert kernel.library_path() != edited
+    assert norm.library_path() != norm_before
 
 
 def test_library_name_follows_source_and_flags():
