@@ -20,10 +20,14 @@ line each:
                  kernel's time;
 4. flash_bwd   — the dq and dk/dv kernels against their plain versions on
                  the same ``(q, k, v, dO, lse, Δ)``, same fields (the
-                 yardstick is the backward of the library call);
+                 yardstick is the backward of the library call), each
+                 with its own bound (dq: three products, one output;
+                 dk/dv: four products, two outputs);
 5. rmsnorm     — the RMSNorm forward kernel against its plain version at
                  ``[N, 768]`` bf16, same fields;
-6. rmsnorm_bwd — the RMSNorm backward kernel likewise;
+6. rmsnorm_bwd — the RMSNorm backward kernel likewise, and a profiled
+                 call that must show exactly one kernel on the card (the
+                 cross-block dscale sum included);
 7. serve       — the 162M decoder on the card with seeded weights, 16
                  requests through ``ServingEngine.submit`` /
                  ``run_until_idle``; launch counts of the forward kernels
@@ -38,8 +42,9 @@ line each:
                  through the plain versions, step time, tokens/s, MFU, peak
                  memory and device time by kind of kernel;
 9. kernels     — ``{"kernels": [...]}``, one entry per kernel of the path,
-                 with the form it runs in (tensor cores or CUDA cores) for
-                 bf16 inputs.
+                 with the form it runs in for bf16 inputs (the three flash
+                 kernels on the tensor cores, the two RMSNorm kernels on
+                 the CUDA cores) and a line on its design.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; it exits non-zero
@@ -382,6 +387,7 @@ def phase_rmsnorm_bwd() -> dict:
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import rmsnorm as rn
+    from horovod_tpu_torch.utils import trace
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     e = 768
@@ -394,6 +400,11 @@ def phase_rmsnorm_bwd() -> dict:
         dx, dscale = rn.rms_norm_backward(x, scale, dy)
         want_dx, want_dscale = rn.rms_norm_backward_reference(x, scale, dy)
         torch.cuda.synchronize()
+        # One call, one kernel: the cross-block sum of dscale included.
+        names = trace.kernels_in_one_call(
+            lambda: rn.rms_norm_backward(x, scale, dy))
+        if len(names) != 1 or "rmsnorm_bwd" not in names[0]:
+            raise AssertionError(f"rmsnorm_bwd N={n}: one call ran {names}")
         err = max(check_close(f"rmsnorm_bwd N={n} dx", dx, want_dx,
                               RMS_ATOL, BF16_RTOL),
                   check_close(f"rmsnorm_bwd N={n} dscale", dscale,
@@ -418,7 +429,7 @@ def phase_rmsnorm_bwd() -> dict:
             plain_ms=time_ms(lambda: rn.rms_norm_backward_reference(
                 x, scale, dy)),
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-            flops=flops, bytes=nbytes)
+            flops=flops, bytes=nbytes, kernels_per_call=names)
         emit("rmsnorm_bwd", **row)
         if n == RMS_MAIN:
             main = row
@@ -671,19 +682,29 @@ def main() -> int:
     launches = phase_train()
     entries = []
     tensor_cores, cuda_cores = "tensor cores (wgmma)", "CUDA cores"
-    for name, row, replaces, form in (
+    ring = "streamed through a two-stage TMA / mbarrier ring"
+    for name, row, replaces, form, design in (
             ("flash_fwd", flash, "horovod_tpu/ops/flash_attention.py:70",
-             tensor_cores),
+             tensor_cores, f"a block per 64- or 128-row q tile, K/V {ring}; "
+             "S = q~.K^T and O += P.V by wgmma"),
             ("flash_bwd_dq", dq, "horovod_tpu/ops/flash_attention.py:389",
-             cuda_cores),
+             tensor_cores, "a block per 64- or 128-row q tile, q~ and dO "
+             f"resident, K/V {ring}; S = q~.K^T, dP = dO.V^T and "
+             "dQ += dS.K by wgmma"),
             ("flash_bwd_dkv", dkv,
-             "horovod_tpu/ops/flash_attention.py:487", tensor_cores),
+             "horovod_tpu/ops/flash_attention.py:487", tensor_cores,
+             f"a block per 64-key tile, K/V resident, q and dO {ring}; "
+             "S^T, dP^T, dV += P^T.dO and dK += dS^T.q~ by wgmma"),
             ("rmsnorm_fwd", rms, "horovod_tpu/ops/rmsnorm.py:62",
-             cuda_cores),
+             cuda_cores, "a warp per row"),
             ("rmsnorm_bwd", rms_bwd, "horovod_tpu/ops/rmsnorm.py:69",
-             cuda_cores)):
+             cuda_cores, "one launch: a warp per row held in registers "
+             "(16-byte vectors; rows of at most 2 KB, width a multiple of "
+             "8; else a loop over the row), dscale summed across blocks "
+             "in the same launch, in block order, by two levels of "
+             "last-block tickets")):
         entries.append({
-            "name": name, "route": "cuda", "form": form,
+            "name": name, "route": "cuda", "form": form, "design": design,
             "source": f"horovod_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],

@@ -13,34 +13,59 @@
 // input dtype before its product with K (the TPU kernel's MXU operand
 // dtype); dq accumulates in f32, is multiplied by scale once at the end
 // and cast to the input dtype.  Rows whose lse is NEG_INF attended to
-// nothing and get p = 0 (exp2 would overflow there).
+// nothing and get p = 0 (exp2 would overflow there).  Masking follows the
+// TPU kernel: a key at global position k_offset + j is visible to the
+// query at q_offset + i iff j < Sk and (not causal or q_offset + i >=
+// k_offset + j).
 //
 // What bounds it on the H100: per visible (q, k) pair it does three
 // products of 2*D operations (s, dp, and ds into dq) against ~D*2 bytes of
 // bf16 q, k, v, dO and dq per position, so at S = 1024 and D = 128 it
 // sits above the card's ridge of ~295 operations per byte: the tensor
-// cores bound it.  This first version does its products on the CUDA cores
-// in f32 (67 TFLOP/s peak), so its own issue rate, not either bound, is
-// what it pays; it is written to be right and simple:
+// cores (989 TFLOP/s in bf16) bound it; products on the CUDA cores
+// (67 TFLOP/s in f32) cannot come near.
 //
-// * one block per (64-row q tile, batch*head); a loop inside the block over
-//   64-key K/V tiles takes the place of the TPU's sequential K grid axis,
-//   and the dq tile stays in registers until it is written once: no
-//   atomics, so the result is deterministic;
-// * K and V tiles go through shared memory once per block, read in place
-//   from the [B, S, H, D] layout; K tiles entirely above the causal
-//   diagonal are skipped;
-// * each warp owns 8 q rows and updates them 4 at a time, so one shared
-//   load of K or V feeds 4 rows' FMAs.
+// bf16, the tensor-core route (namespace tc), the mirror image of the
+// dk/dv kernel's:
 //
-// Masking follows the TPU kernel: a key at global position k_offset + j is
-// visible to the query at q_offset + i iff j < Sk and (not causal or
-// q_offset + i >= k_offset + j).
+// * one block per (q tile, batch*head), the last causal q tiles (which see
+//   the most keys) issued first; the q tile is 128 rows (two consumer
+//   warpgroups of 64 rows) when that gives at least one block per SM, else
+//   64 rows (one warpgroup), the forward's rule.  The block's q~ and dO
+//   tiles are loaded once by TMA and stay resident; each warpgroup folds
+//   its q rows in shared memory (multiply, round to bf16) before its first
+//   product.  dq accumulates in registers and is written once: no atomics,
+//   so the result is deterministic;
+// * each consumer thread keeps its two rows' lse * log2(e) and delta in
+//   registers, +inf for a row that attended to nothing or lies past S_q,
+//   so that p = exp2(-inf) = 0 there;
+// * a producer warp streams 64-key K and V tiles through a two-stage TMA /
+//   mbarrier ring; under the causal mask tiles past the block's last query
+//   are not loaded;
+// * S = q~.K^T and dP = dO.V^T are wgmma products from shared memory (both
+//   operands K-major, as the tiles lie); P and dS = P * (dP - delta),
+//   rounded to bf16, are formed on the accumulator fragment in registers,
+//   which is exactly the layout of wgmma's A operand, so dQ += dS.K takes
+//   dS from registers and K from shared memory through the transpose bit
+//   (its contracted dim is the key).  Neither P nor dS goes through shared
+//   memory;
+// * only tiles that straddle the causal diagonal or the ragged end of the
+//   keys are masked.
+//
+// float32, the CUDA-core route (chosen by dtype, never on failure): f32
+// inputs cannot meet the f32 checks' 1e-4 through bf16 tensor-core
+// products, so they keep the first version's design: one block per (64-row
+// q tile, batch*head) looping over 64-key K/V tiles staged through shared
+// memory in f32; each warp owns 8 q rows and updates them 4 at a time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---- float32: CUDA cores -------------------------------------------------
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -52,19 +77,13 @@ constexpr int kRowsPerWarp = kBQ / kWarps;   // 8
 constexpr int kR = 4;                        // rows updated together
 constexpr int kGroups = kRowsPerWarp / kR;   // 2
 
+// This route takes float32 only; the conversions keep its body generic.
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
 
 // Rounds an f32 value to T and back: the TPU kernel's operand cast.
 template <typename T>
@@ -248,13 +267,262 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16: tensor cores --------------------------------------------------
+
+namespace tc {
+
+using namespace hvd_sm90;
+
+constexpr int kStages = 2;   // K/V ring depth
+
+template <int D, int NWG>
+struct Smem {
+  static constexpr int kChunks = D / 64;
+  static constexpr uint32_t kTile = kChunks * kChunkBytes;   // 64 rows
+  static constexpr uint32_t kQ = 0;                          // NWG tiles
+  static constexpr uint32_t kO = NWG * kTile;                // dO, NWG tiles
+  static constexpr uint32_t kStage0 = 2 * NWG * kTile;       // K, V per stage
+  static constexpr uint32_t kBars = kStage0 + kStages * 2 * kTile;
+  // q_full, full[kStages], empty[kStages]; 1024 bytes of alignment slack.
+  static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+           const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap,
+           const __grid_constant__ CUtensorMap omap,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk, int causal,
+           int q_offset, int k_offset, float qscale, float scale) {
+  using L = Smem<D, NWG>;
+  constexpr int kChunks = L::kChunks;
+  constexpr int kBQ = 64 * NWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kBars;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto k_tile = [&](int s) { return base + L::kStage0 + 2 * s * L::kTile; };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // K tiles this block needs: under the causal mask, none whose first key
+  // lies past the block's last query.
+  int n_tiles = (Sk + 63) / 64;
+  if (causal) {
+    const int span = q_offset + min(q0 + kBQ, Sq) - 1 - k_offset;
+    n_tiles = span < 0 ? 0 : min(n_tiles, span / 64 + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NWG);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {   // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * NWG * L::kTile);
+      for (int w = 0; w < NWG; ++w)
+        for (int c = 0; c < kChunks; ++c) {
+          const uint32_t off = (w * kChunks + c) * kChunkBytes;
+          tma_load(base + L::kQ + off, &qmap, q_full, 64 * c, h, q0 + 64 * w, b);
+          tma_load(base + L::kO + off, &omap, q_full, 64 * c, h, q0 + 64 * w, b);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty(s), ((t / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(full(s), 2 * L::kTile);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(k_tile(s) + c * kChunkBytes, &kmap, full(s), 64 * c, h,
+                   64 * t, b);
+          tma_load(k_tile(s) + L::kTile + c * kChunkBytes, &vmap, full(s),
+                   64 * c, h, 64 * t, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 q rows; this thread holds rows r0 and r0 + 8.
+  const int wg = warp / 4, w4 = warp % 4;
+  const int row0 = q0 + 64 * wg;
+  const int r0 = row0 + 16 * w4 + lane / 4;
+  const uint32_t q_tile = base + L::kQ + wg * L::kTile;
+  const uint32_t o_tile = base + L::kO + wg * L::kTile;
+
+  // The rows' lse * log2(e) (+inf where p must be 0) and delta, read while
+  // the tiles are in flight.
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    l2[r] = __int_as_float(0x7f800000);   // +inf
+    dl[r] = 0.f;
+    if (qi < Sq) {
+      const long at = ((long)b * Sq + qi) * H + h;
+      const float lv = lse[at];
+      if (lv > kNegInf / 2) l2[r] = lv * kLog2e;
+      dl[r] = delta[at];
+    }
+  }
+
+  mbar_wait(q_full, 0);
+  fold_tile(smem + L::kQ + wg * L::kTile, L::kTile, threadIdx.x % 128, 128,
+            qscale);
+  fence_proxy_async();
+  if (wg == 0) named_bar_sync<1>(128);
+  else named_bar_sync<2>(128);
+
+  // This warpgroup's own reach: the block's last tiles may lie past it.
+  int n_mine = row0 < Sq ? n_tiles : 0;
+  if (causal && row0 < Sq) {
+    const int span = q_offset + min(row0 + 64, Sq) - 1 - k_offset;
+    n_mine = span < 0 ? 0 : min(n_tiles, span / 64 + 1);
+  }
+
+  float acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(full(st), (t / kStages) & 1);
+    if (t < n_mine) {
+      const uint32_t kt = k_tile(st), vt = kt + L::kTile;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
+        wgmma_ss_m64n64k16(s, desc_k_major(q_tile + off),
+                           desc_k_major(kt + off), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
+        wgmma_ss_m64n64k16(dp, desc_k_major(o_tile + off),
+                           desc_k_major(vt + off), kk > 0);
+      }
+      wgmma_commit();
+
+      // P while dP is still in flight.
+      wgmma_wait<1>();
+      fence_regs(s);
+      const int k0 = 64 * t;
+      const bool masked =
+          k0 + 64 > Sk || (causal && k_offset + k0 + 63 > q_offset + row0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float p = exp2f(s[i] - l2[acc_half(i)]);
+        if (masked) {
+          const int c = k0 + acc_col(i, lane);
+          const int r = r0 + 8 * acc_half(i);
+          if (!(c < Sk && (!causal || q_offset + r >= k_offset + c))) p = 0.f;
+        }
+        s[i] = p;
+      }
+
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j;
+          dsa[kk][j] = pack_bf16(s[i] * (dp[i] - dl[acc_half(i)]),
+                                 s[i + 1] * (dp[i + 1] - dl[acc_half(i + 1)]));
+        }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t kd = desc_mn_major(kt + kk * 16 * 128);
+        if constexpr (D == 128) wgmma_rs_m64n128k16_tb(acc, dsa[kk], kd);
+        else wgmma_rs_m64n64k16_tb(acc, dsa[kk], kd);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(dsa);
+    }
+    if (lane == 0) mbar_arrive(empty(st));   // this warp is done with st
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + (((long)b * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + acc_col(4 * j, lane)) = pack_bf16(
+          acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+template <int D, int NWG>
+int launch_rows(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, int B, int H,
+                int Sq, int Sk, int causal, int q_offset, int k_offset,
+                float qscale, float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  // With no keys, the K and V maps are never read: describe q instead.
+  const bool no_keys = Sk == 0;
+  int rc = make_bshd_map(&qm, q, B, Sq, H, D);
+  if (!rc) rc = make_bshd_map(&om, dout, B, Sq, H, D);
+  if (!rc) rc = make_bshd_map(&km, no_keys ? q : k, B, no_keys ? Sq : Sk, H, D);
+  if (!rc) rc = make_bshd_map(&vm, no_keys ? q : v, B, no_keys ? Sq : Sk, H, D);
+  if (rc) return rc;
+  constexpr uint32_t smem = Smem<D, NWG>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Sq + 64 * NWG - 1) / (64 * NWG));
+  flash_bwd_dq_wgmma_kernel<D, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(
+      qm, km, vm, om, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
+      Sq, Sk, causal, q_offset, k_offset, qscale, scale);
+  return (int)cudaGetLastError();
+}
+
+// 128-row q tiles when they give every SM a block, else 64-row ones.
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int B, int H, int Sq,
+           int Sk, int causal, int q_offset, int k_offset, float qscale,
+           float scale, cudaStream_t stream) {
+  if ((long)((Sq + 127) / 128) * B * H >= num_sms())
+    return launch_rows<D, 2>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
+                             causal, q_offset, k_offset, qscale, scale, stream);
+  return launch_rows<D, 1>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
+                           causal, q_offset, k_offset, qscale, scale, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v, dout and dq of that dtype,
-// [B, S, H, D] contiguous; lse and delta float32 [B, Sq, H].  qscale is
-// D**-0.5 * log2(e) and scale is D**-0.5, rounded to float by the caller.
-// Returns a cudaError_t, or -1 for a dtype/head_dim combination this kernel
-// was not built for.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v,
+// dout and dq of that dtype, [B, S, H, D] contiguous; lse and delta
+// float32 [B, Sq, H].  qscale is D**-0.5 * log2(e) and scale is D**-0.5,
+// rounded to float by the caller.  Returns a cudaError_t, or -1 for a
+// dtype/head_dim combination this kernel was not built for.
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int dtype, int B,
@@ -267,8 +535,8 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
+    return tc::launch<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
+    return tc::launch<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
   return -1;
 }

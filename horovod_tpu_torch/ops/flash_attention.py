@@ -21,9 +21,9 @@ JAX package's public one, over ``[B, S, H, D]`` tensors:
 A CUDA tensor launches the kernels (float32 or bfloat16, ``head_dim`` 64 or
 128) or raises; a CPU tensor takes the plain versions.  On the card the
 route follows the dtype: float32 runs every product on the CUDA cores in
-f32; bfloat16 runs the forward and dk/dv kernels on the tensor cores, whose
-operands are bf16, so p is carried there as follows (the plain versions
-keep f32 p, the JAX contract; ``l`` sums the f32 p in both):
+f32; bfloat16 runs all three kernels on the tensor cores, whose operands
+are bf16, so p is carried there as follows (the plain versions keep f32 p,
+the JAX contract; ``l`` sums the f32 p in both):
 
 * forward ``p·V``: p enters as two bf16 terms, ``bf16(p)`` and
   ``bf16(p - bf16(p))`` (~16 significant bits), so the output agrees with
@@ -31,9 +31,11 @@ keep f32 p, the JAX contract; ``l`` sums the f32 p in both):
 * dk/dv ``pᵀ·dO``: p is rounded to bf16 once, the single bf16 MXU pass
   that the TPU kernel's f32 ``p·dO`` product takes
   (``horovod_tpu/ops/flash_attention.py:142-146``, ``:560-564``); ds is
-  formed from the f32 p.
+  formed from the f32 p;
+* dq ``ds·K``: ds is formed from the f32 p and rounded to bf16, as the
+  contract already rounds it, so dq adds no rounding of its own: its
+  operands (q̃, K, V, dO, ds) are all bf16 values already.
 
-The dq kernel still runs on the CUDA cores in both dtypes.
 :func:`flash_attention` is differentiable on every device through
 :class:`_Flash`; :func:`flash_attention_with_lse` is forward-only, as in
 the JAX package, and :func:`flash_attention_backward` takes lse and Δ
@@ -95,7 +97,8 @@ def flash_attention_reference(q, k, v, causal: bool = True, q_offset=0,
                     q.device)
     s = torch.einsum("bqhd,bkhd->bhqk", _fold_q(q), k.float())
     s = s.masked_fill(~mask, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True) if k.shape[1] else \
+        s.new_full(s.shape[:-1] + (1,), NEG_INF)   # no keys: nothing seen
     p = torch.where(mask, torch.exp2(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)                        # [b, h, q, 1]
     denom = l.clamp_min(1e-30)

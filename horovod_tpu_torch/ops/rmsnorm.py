@@ -10,6 +10,13 @@ scale's.  A CUDA tensor launches the kernels (float32 or bfloat16 ``x``;
 the scale goes to them as float32) or raises; a CPU tensor takes
 :func:`rms_norm_reference` and :func:`rms_norm_backward_reference`.
 
+The backward is one launch: the kernel sums its per-block dscale partials
+itself, in block order, so the wrapper sums nothing.  The last block to
+finish is found with ticket counters that live in a small zeroed workspace,
+allocated once per (device, stream) and left zeroed by every launch.  Rows
+of up to 2 KB whose width is a multiple of 8 are held in registers; wider
+or ragged rows take the kernel's loop form (``csrc/rmsnorm_bwd.cu``).
+
 The JAX package leaves the kernels off by default because XLA fuses the
 plain norm into its neighbours on the TPU.  Eager PyTorch fuses nothing, so
 on the card the kernels are the one-pass versions of the norm.
@@ -26,8 +33,11 @@ from horovod_tpu_torch.ops import _build
 
 DEFAULT_EPS = 1e-6
 # The backward kernel's grid cap: each block writes one [E] row of dscale
-# partials, so this bounds the scratch the wrapper sums.
+# partials, so this bounds the scratch the kernel sums.
 MAX_BWD_BLOCKS = 256
+# Ticket counters of the backward's cross-block sum: it needs
+# 1 + ceil(blocks / 16) <= 17 of them, and checks the count it is given.
+BWD_COUNTERS = 32
 # The backward kernel keeps 8 rows of f32 dscale partials in shared memory
 # (8 * E * 4 bytes of the 227 KB a block may use).
 MAX_BWD_WIDTH = 7168
@@ -36,9 +46,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = _build.register(
     "rmsnorm_fwd", "hvd_rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _F, _P])
 BWD_KERNEL = _build.register(
-    "rmsnorm_bwd", "hvd_rmsnorm_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                       _I, _P])
+    "rmsnorm_bwd", "hvd_rmsnorm_bwd", [_P] * 7 + [_I, _I, _I, _I, _F, _I, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WORKSPACES: dict = {}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -77,6 +87,17 @@ def _check_cuda_inputs(x, scale):
         raise ValueError("rms_norm: x must be contiguous")
 
 
+def _bwd_workspace(device, stream) -> torch.Tensor:
+    """The backward kernel's ticket counters on ``stream``: zeroed once,
+    and zero again after every launch, so launches on one stream share
+    them; launches on two streams could overlap, so each has its own."""
+    key = (device, getattr(stream, "value", stream))
+    if key not in _WORKSPACES:
+        _WORKSPACES[key] = torch.zeros(BWD_COUNTERS, dtype=torch.int32,
+                                       device=device)
+    return _WORKSPACES[key]
+
+
 def _rms_norm_cuda(x, scale, eps):
     _check_cuda_inputs(x, scale)
     e = x.shape[-1]
@@ -106,16 +127,20 @@ def _rms_norm_bwd_cuda(x, scale, dy, eps):
     dx = torch.empty_like(x)
     if n == 0:
         return dx, torch.zeros_like(scale)
-    blocks = min(-(-n // 8), MAX_BWD_BLOCKS)
+    blocks = min(-(-n // 8), MAX_BWD_BLOCKS)   # set from N alone
     part = torch.empty((blocks, e), dtype=torch.float32, device=x.device)
+    dscale = torch.empty(e, dtype=torch.float32, device=x.device)
     scale32 = scale.to(torch.float32).contiguous()
+    stream = _build.stream_of(x)
     with torch.cuda.device(x.device):
+        counters = _bwd_workspace(x.device, stream)
         BWD_KERNEL(x.data_ptr(), dy.data_ptr(), scale32.data_ptr(),
-                   dx.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], n, e,
-                   eps, blocks, _build.stream_of(x))
-    # The per-block partials' sum, as the JAX caller sums its kernel's
-    # (rmsnorm.py:139).
-    return dx, part.sum(dim=0).to(scale.dtype)
+                   dx.data_ptr(), part.data_ptr(), dscale.data_ptr(),
+                   counters.data_ptr(), counters.numel(), _DTYPES[x.dtype],
+                   n, e, eps, blocks, stream)
+    # The kernel summed its per-block partials, as the JAX caller sums its
+    # kernel's (rmsnorm.py:139).
+    return dx, dscale.to(scale.dtype)
 
 
 def rms_norm_backward(x, scale, dy, eps: float = DEFAULT_EPS):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -20,11 +21,12 @@ import torch
 
 # Substrings of kernel names, first match wins.
 KINDS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
-         ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+         ("flash_bwd_dq", ("flash_bwd_dq_kernel",
+                           "flash_bwd_dq_wgmma_kernel")),
          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                             "flash_bwd_dkv_wgmma_kernel")),
          ("rmsnorm_fwd", ("rmsnorm_fwd_kernel",)),
-         ("rmsnorm_bwd", ("rmsnorm_bwd_kernel",)),
+         ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_regs_kernel")),
          ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -52,6 +54,22 @@ def busy_us(events) -> float:
             total += hi - max(lo, end)
             end = hi
     return total
+
+
+def kernels_in_one_call(fn) -> list[str]:
+    """Names of the kernels, copies and fills the card ran for one call of
+    ``fn``, after a warm-up call (which may allocate), from a trace."""
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.trace.json")
+        prof.export_chrome_trace(path)
+        return [e["name"] for e in device_events(path)]
 
 
 def measure(name: str, fn, calls: int, trace_dir: str) -> dict:

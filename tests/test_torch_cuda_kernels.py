@@ -12,6 +12,7 @@ import torch
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import flash_attention as tfa
 from horovod_tpu_torch.ops import rmsnorm as trn
+from horovod_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +27,11 @@ FLASH_CASES = [   # (S_q, S_k, causal, q_offset, k_offset, head_dim)
     case for d in (64, 128) for case in (
         (1000, 1000, True, 0, 0, d), (1, 300, True, 299, 0, d),
         (37, 300, True, 263, 0, d), (50, 30, True, 20, 0, d),
-        (100, 40, False, 0, 0, d), (100, 80, True, 0, 37, d))]
+        (100, 40, False, 0, 0, d), (100, 80, True, 0, 37, d),
+        # No keys at all; and 128-row q tiles (S_q large enough that they
+        # fill the card at B*H = 6) with a ragged last tile, whose second
+        # warpgroup is partly past S_q, over fewer keys than one K tile.
+        (130, 0, True, 0, 0, d), (2900, 40, True, 0, 0, d))]
 
 
 @pytest.fixture()
@@ -50,7 +55,7 @@ def _close(got, want, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     else:
-        scale = want.abs().max().item()
+        scale = want.abs().max().item() if want.numel() else 0.0
         torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=1.6e-2)
 
 
@@ -94,8 +99,9 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, s_q, s_k, causal,
     want = tfa.flash_attention_backward_reference(q, k, v, dout, lse, delta,
                                                   causal, q_off, k_off)
     torch.cuda.synchronize()
+    # With no keys there is no dk or dv to compute, and no dk/dv launch.
     assert (tfa.DQ_KERNEL.launches, tfa.DKV_KERNEL.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 1, before[1] + (1 if s_k else 0))
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape
         _close(g, w, dtype)
@@ -105,15 +111,20 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, s_q, s_k, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_dkv_kernel_is_deterministic(cuda, dtype):
-    # dk and dv accumulate in registers and are written once (no atomics):
-    # two launches on the same inputs agree bit for bit.
-    q, k, v, dout = _qkv(cuda, dtype, 1000, 1000, 128, seed=3)
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_flash_dkv_kernel_is_deterministic(cuda, kernel, dtype):
+    # dq, and dk and dv, accumulate in registers and are written once (no
+    # atomics): two launches on the same inputs agree bit for bit.  S = 2900
+    # takes the dq kernel's 128-row q tiles.
+    fn = {"dq": tfa.flash_bwd_dq, "dkv": tfa.flash_bwd_dkv}[kernel]
+    q, k, v, dout = _qkv(cuda, dtype, 2900, 2900, 128, seed=3)
     out, lse = tfa.flash_attention_with_lse(q, k, v)
     delta = (dout.float() * out.float()).sum(-1)
-    first = tfa.flash_bwd_dkv(q, k, v, dout, lse, delta)
-    second = tfa.flash_bwd_dkv(q, k, v, dout, lse, delta)
+    first = fn(q, k, v, dout, lse, delta)
+    second = fn(q, k, v, dout, lse, delta)
     torch.cuda.synchronize()
+    if kernel == "dq":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -150,9 +161,17 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, e):
         x, scale).float(), atol=1e-5, rtol=tol)
 
 
+# Widths each form of the backward kernel takes: rows of at most 2 KB whose
+# width is a multiple of 8 in registers (bf16 768, 384, 1024; f32 384), the
+# rest in the loop form (f32 768, 1024; 100 and 4096 in both dtypes).  N
+# above 8 * MAX_BWD_BLOCKS rows makes each warp take several rows; N up to
+# 128 runs one group of blocks, whose sum is dscale itself.
+RMS_BWD_CASES = [(1, 768), (1000, 768), (8192, 768), (37, 384),
+                 (3000, 1024), (300, 100), (2500, 4096)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,e", [(1, 768), (1000, 768), (8192, 768),
-                                 (37, 384)])
+@pytest.mark.parametrize("n,e", RMS_BWD_CASES)
 def test_rmsnorm_backward_kernel_matches_plain(cuda, dtype, n, e):
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(n, e, generator=g, device=cuda, dtype=dtype)
@@ -170,3 +189,36 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, dtype, n, e):
     # dscale sums N f32 terms in another order: relative to sqrt(N).
     torch.testing.assert_close(dscale, want_dscale, atol=1e-4 * n ** 0.5,
                                rtol=1e-5)
+
+
+def _rms_bwd_inputs(cuda, dtype, n, e, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x, dy = (torch.randn(n, e, generator=g, device=cuda, dtype=dtype)
+             for _ in range(2))
+    return x, 1 + 0.1 * torch.randn(e, generator=g, device=cuda), dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e", [(8192, 768), (2500, 100)])
+def test_rmsnorm_backward_kernel_is_deterministic(cuda, dtype, n, e):
+    # Every sum runs in an order fixed by block index: two launches give
+    # bit-equal dscale (and dx).
+    x, scale, dy = _rms_bwd_inputs(cuda, dtype, n, e, seed=4)
+    first = trn.rms_norm_backward(x, scale, dy)
+    second = trn.rms_norm_backward(x, scale, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,e,form", [
+    (torch.bfloat16, 768, "regs"), (torch.bfloat16, 100, "loop"),
+    (torch.float32, 384, "regs"), (torch.float32, 768, "loop")])
+def test_rmsnorm_backward_is_one_launch_of_its_form(cuda, dtype, e, form):
+    # One call is one kernel on the card (the cross-block dscale sum
+    # included), and the width picks the form.
+    x, scale, dy = _rms_bwd_inputs(cuda, dtype, 2048, e)
+    names = trace.kernels_in_one_call(
+        lambda: trn.rms_norm_backward(x, scale, dy))
+    assert len(names) == 1, names
+    assert ("rmsnorm_bwd_regs_kernel" in names[0]) == (form == "regs"), names

@@ -4,6 +4,7 @@ tensor launches its kernel or raises, and a build failure raises."""
 
 import ast
 import contextlib
+import ctypes
 import json
 import os
 import pkgutil
@@ -90,13 +91,17 @@ def test_model_entry_points_default_to_cuda(monkeypatch):
 
 class _FakeKernel:
     """Stands in for a built kernel on this CPU host: counts launches the
-    way ``_build.Kernel.__call__`` does, and launches nothing."""
+    way ``_build.Kernel.__call__`` does, keeps the arguments, and launches
+    nothing; ``effect`` may act on the arguments as the kernel would."""
 
-    def __init__(self):
-        self.launches = 0
+    def __init__(self, effect=None):
+        self.launches, self.calls, self.effect = 0, [], effect
 
     def __call__(self, *args):
         self.launches += 1
+        self.calls.append(args)
+        if self.effect is not None:
+            self.effect(*args)
 
 
 def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
@@ -138,27 +143,46 @@ def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
     assert [f.launches for f in fakes.values()] == [1, 1, 1]
 
 
+def _write_dscale(x, dy, scale, dx, part, dscale, counters, n_counters,
+                  dtype, n, e, eps, blocks, stream):
+    """What the backward kernel leaves behind: dscale (here 0, 1, ..., e-1)
+    written, from zeroed ticket counters that it leaves zeroed."""
+    assert n_counters == trn.BWD_COUNTERS >= 1 + -(-blocks // 16)
+    assert list((ctypes.c_int32 * n_counters).from_address(counters)) == \
+        [0] * n_counters
+    want = torch.arange(e, dtype=torch.float32)
+    ctypes.memmove(dscale, want.data_ptr(), 4 * e)
+
+
 def test_cuda_rmsnorm_wrapper_trains_through_the_backward_kernel(monkeypatch):
     monkeypatch.setattr(trn, "_on_cuda", lambda t: True)
     monkeypatch.setattr(trn._build, "stream_of", lambda t: None)
+    monkeypatch.setattr(trn, "_WORKSPACES", {})
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
-    fwd, bwd = _FakeKernel(), _FakeKernel()
+    fwd, bwd = _FakeKernel(), _FakeKernel(_write_dscale)
     monkeypatch.setattr(trn, "KERNEL", fwd)
     monkeypatch.setattr(trn, "BWD_KERNEL", bwd)
     x = torch.randn(4, 32, requires_grad=True)
     scale = torch.ones(32, requires_grad=True)
     y = trn.rms_norm(x, scale)
     y.sum().backward()
-    assert x.grad.shape == x.shape and scale.grad.shape == scale.shape
+    assert x.grad.shape == x.shape
+    # One launch per backward, and dscale is what the kernel wrote: the
+    # wrapper sums no partials of its own.
     assert (fwd.launches, bwd.launches) == (1, 1)
+    assert torch.equal(scale.grad, torch.arange(32, dtype=torch.float32))
+    trn.rms_norm_backward(x.detach(), scale.detach(), torch.ones(4, 32))
+    assert bwd.launches == 2
+    assert bwd.calls[0][6] == bwd.calls[1][6]   # one workspace per stream
+    assert len(trn._WORKSPACES) == 1
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         trn.rms_norm(x.detach().half(), scale.detach())
     with pytest.raises(ValueError, match="at most"):
         trn.rms_norm_backward(torch.randn(2, trn.MAX_BWD_WIDTH + 1),
                               torch.ones(trn.MAX_BWD_WIDTH + 1),
                               torch.randn(2, trn.MAX_BWD_WIDTH + 1))
-    assert (fwd.launches, bwd.launches) == (1, 1)
+    assert (fwd.launches, bwd.launches) == (1, 2)
 
 
 def test_process_identity_before_init_raises(monkeypatch):

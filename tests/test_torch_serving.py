@@ -368,12 +368,14 @@ def test_breakdown_counts_device_time_once_and_by_kind(monkeypatch):
         "void (anonymous namespace)::tc::flash_fwd_wgmma_kernel<128, 2>("
         "CUtensorMap_st, CUtensorMap_st",
         "void (anonymous namespace)::tc::flash_bwd_dkv_wgmma_kernel<128>(",
+        "void (anonymous namespace)::tc::flash_bwd_dq_wgmma_kernel<128, 2>(",
         "void rmsnorm_fwd_kernel<float>", "void rmsnorm_bwd_kernel<float>",
-        "nvjet_tst_64x8_64x16", "sm90_xmma_gemm_bf16bf16",
+        "void (anonymous namespace)::rmsnorm_bwd_regs_kernel<__nv_bfloat16, "
+        "3>(", "nvjet_tst_64x8_64x16", "sm90_xmma_gemm_bf16bf16",
         "softmax_warp_forward")] == \
         ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd",
-         "flash_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd", "matmul", "matmul",
-         "other"]
+         "flash_bwd_dkv", "flash_bwd_dq", "rmsnorm_fwd", "rmsnorm_bwd",
+         "rmsnorm_bwd", "matmul", "matmul", "other"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         breakdown.main([])
