@@ -24,7 +24,14 @@ line each:
                  with its own bound (dq: three products, one output;
                  dk/dv: four products, two outputs);
 5. rmsnorm     — the RMSNorm forward kernel against its plain version at
-                 ``[N, 768]`` bf16, same fields;
+                 ``[N, 768]`` bf16 and the f32 training step's rows, same
+                 fields, a profiled call at every row that must show
+                 exactly one kernel, of the form the shape picks, and the
+                 time of an empty launch beside it (the floor of the
+                 decode rows); rows of 1 MiB or more are also timed from
+                 HBM (inputs rotated through twice L2), beside a copy of
+                 x from HBM (the same bytes moved), and their share of the
+                 byte bound is taken from that time;
 6. rmsnorm_bwd — the RMSNorm backward kernel likewise, and a profiled
                  call that must show exactly one kernel on the card (the
                  cross-block dscale sum included);
@@ -53,9 +60,12 @@ too when no CUDA device is present or the package is not beside it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -69,6 +79,11 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_CUDA_CORE_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2**20
+# Below this many bytes a call (the decode rows) is bound by its launch,
+# not by HBM: it is read against an empty launch's time, and has no share
+# of the byte bound.
+RMS_HBM_MIN_BYTES = 2**20
 
 SEED = 0
 # (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
@@ -85,6 +100,10 @@ FLASH_BWD_SHAPES = (
     (1, 1024, 1024, False, 0), (1, 128, 1024, True, 896))
 FLASH_MAIN = (8, 1024, 1024, True, 0)   # one training step's attention
 RMS_ROWS = (1, 8, 1000, 2048, 8192)     # [N, 768] bf16
+# (dtype, N) of the RMSNorm forward's checks: the bf16 rows of every path
+# (register form) and the f32 training step's rows (3 KB: the loop form).
+RMS_CASES = tuple((torch.bfloat16, n) for n in RMS_ROWS) + (
+    (torch.float32, 8192),)
 RMS_BWD_ROWS = (1000, 2048, 8192)
 RMS_MAIN = 8192                         # one training step's tokens
 # bf16 outputs: |kernel - plain| <= ATOL + RTOL * |plain|.  Both compute in
@@ -96,6 +115,9 @@ RMS_MAIN = 8192                         # one training step's tokens
 # which on rows that see only a few keys exceeds FLASH_ATOL.
 BF16_RTOL = 1.6e-2
 FLASH_ATOL, RMS_ATOL, LSE_ATOL = 1e-3, 1e-5, 1e-4
+# f32 RMSNorm: kernel and plain version sum x^2 in other orders, within a
+# few f32 ulps of each other.
+RMS_F32_RTOL = 1e-5
 # Backward gradients in bf16: |kernel - plain| <= GRAD_ATOL * max|plain| +
 # BF16_RTOL * |plain|.  Besides the final rounding to bf16, ds is rounded
 # to bf16 before its products (the TPU kernel's contract), and where the
@@ -157,6 +179,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_cold_ms(fn, inputs) -> float:
+    """:func:`time_ms` of ``fn`` on each of ``inputs`` in turn, its output
+    kept until that input comes round again, so each call reads an input
+    and writes an output that no call of the last ``len(inputs)`` touched.
+    With those together larger than L2, each call's bytes come from and go
+    to HBM."""
+    turn = itertools.cycle(inputs)
+    outs = collections.deque(maxlen=len(inputs))
+    return time_ms(lambda: outs.append(fn(next(turn))))
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -206,7 +239,8 @@ def phase_build():
         per = dict(zip(_build.KERNELS,
                        pool.map(load, _build.KERNELS.values())))
     ptxas = {name: [ln.strip() for ln in k.build_log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill"))]
              for name, k in _build.KERNELS.items()}
     emit("build", seconds=time.monotonic() - t0, per_kernel_s=per,
          ptxas=ptxas)
@@ -350,35 +384,68 @@ def phase_rmsnorm() -> dict:
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import rmsnorm as rn
+    from horovod_tpu_torch.utils import trace
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     e = 768
     scale = 1.0 + 0.1 * torch.randn(e, generator=gen, device="cuda")
     worst, main = 0.0, None
     lib_fn = getattr(F, "rms_norm", None)
-    for n in RMS_ROWS:
-        x = torch.randn(n, e, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
+    # The least a call can take: one empty launch, timed the same way.
+    launch_floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    for dtype, n in RMS_CASES:
+        x = torch.randn(n, e, generator=gen, device="cuda", dtype=dtype)
         y = rn.rms_norm(x, scale)
         ref = rn.rms_norm_reference(x, scale)
         torch.cuda.synchronize()
-        err = check_close(f"rmsnorm N={n}", y, ref, RMS_ATOL, BF16_RTOL)
-        worst = max(worst, err)
-        nbytes = 2.0 * n * e * 2 + 4.0 * e
+        bf16 = dtype == torch.bfloat16
+        tag = f"rmsnorm {str(dtype)[6:]} N={n}"
+        err = check_close(tag, y, ref, RMS_ATOL,
+                          BF16_RTOL if bf16 else RMS_F32_RTOL)
+        if bf16:
+            worst = max(worst, err)
+        # One call, one kernel, of the form the shape picks: bf16 rows of
+        # 768 in registers, f32 rows of 768 (3 KB) in the loop.
+        form = "rmsnorm_fwd_regs_kernel" if bf16 else "rmsnorm_fwd_kernel"
+        names = trace.kernels_in_one_call(lambda: rn.rms_norm(x, scale))
+        if len(names) != 1 or form not in names[0]:
+            raise AssertionError(f"{tag}: one call ran {names}")
+        nbytes = 2.0 * n * e * x.element_size() + 4.0 * e
         flops = 4.0 * n * e   # square-accumulate, normalise, scale
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_CUDA_CORE_FLOPS)
         scale_x = scale.to(x.dtype)
-        row = dict(
-            shape=[n, e], max_abs_err=err,
-            kernel_ms=time_ms(lambda: rn.rms_norm(x, scale)),
-            plain_ms=time_ms(lambda: rn.rms_norm_reference(x, scale)),
-            library_ms=(time_ms(lambda: lib_fn(x, (e,), scale_x, 1e-6))
-                        if lib_fn is not None else None),
-            bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-            bytes=nbytes)
+        lib = (lambda t: lib_fn(t, (e,), scale_x, 1e-6)) if lib_fn else None
+        fns = {"kernel_ms": lambda t: rn.rms_norm(t, scale),
+               "plain_ms": lambda t: rn.rms_norm_reference(t, scale),
+               "library_ms": lib}
+
+        def times(timer):
+            return {k: timer(f) if f else None for k, f in fns.items()}
+
+        # Back to back, as the other kernels are timed: a call's x and y
+        # stay in L2.
+        row = dict(shape=[n, e], dtype=str(dtype)[6:], max_abs_err=err,
+                   **times(lambda f: time_ms(lambda: f(x))),
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes, kernels_per_call=names,
+                   launch_floor_ms=launch_floor_ms, share_of_bound=None)
+        if nbytes >= RMS_HBM_MIN_BYTES:
+            # Each call on its own x and y, over sets at least twice L2:
+            # the bytes come from and go to HBM, as the bound assumes.
+            sets = [x] + [torch.randn(n, e, generator=gen, device="cuda",
+                                      dtype=dtype)
+                          for _ in range(math.ceil(2 * L2_BYTES / nbytes))]
+            hbm = times(lambda f: time_cold_ms(f, sets))
+            # What the card takes to move the same bytes: x read, a copy
+            # of it written.
+            hbm["copy_ms"] = time_cold_ms(torch.clone, sets)
+            row.update(hbm=dict(hbm, sets=len(sets)),
+                       share_of_bound=bound_ms / hbm["kernel_ms"])
+            del sets
         emit("rmsnorm", **row)
-        if n == RMS_MAIN:
-            main = row
+        if bf16 and n == RMS_MAIN:
+            # The kernels line takes the HBM times, the bound's terms.
+            main = dict(row, **row["hbm"])
     main["max_abs_err"] = worst
     return main
 
@@ -696,7 +763,13 @@ def main() -> int:
              f"a block per 64-key tile, K/V resident, q and dO {ring}; "
              "S^T, dP^T, dV += P^T.dO and dK += dS^T.q~ by wgmma"),
             ("rmsnorm_fwd", rms, "horovod_tpu/ops/rmsnorm.py:62",
-             cuda_cores, "a warp per row"),
+             cuda_cores, "a warp per row held in registers (16-byte "
+             "vectors; rows of at most 2 KB, width a multiple of the "
+             "vector, 16-byte aligned; else two passes over the row with "
+             "scale prefetched to L1): every load of x and scale issued "
+             "before the first add, one memory round trip a row, scale "
+             "kept in registers across a warp's rows; a row's bits do not "
+             "depend on N"),
             ("rmsnorm_bwd", rms_bwd, "horovod_tpu/ops/rmsnorm.py:69",
              cuda_cores, "one launch: a warp per row held in registers "
              "(16-byte vectors; rows of at most 2 KB, width a multiple of "

@@ -62,74 +62,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "rmsnorm.cuh"
+
 namespace {
+
+using namespace hvd_rms;
 
 constexpr int kWarps = 8;        // rows in flight per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kGroup = 16;       // blocks per group of the cross-block sum
 constexpr int kMaxVecs = 4;      // register form: 16-byte vectors per lane
 constexpr int kRegRowBytes = 32 * kMaxVecs * 16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// One 16-byte vector of T as kN floats, and back (round to nearest even).
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void unpack(const uint4& v, float (&f)[kN]) {
-    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
-    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
-  }
-  __device__ static uint4 pack(const float (&f)[kN]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void unpack(const uint4& v, float (&f)[kN]) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 t =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      f[2 * j] = t.x;
-      f[2 * j + 1] = t.y;
-    }
-  }
-  __device__ static uint4 pack(const float (&f)[kN]) {
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-      w[j] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
 
 // Called by every thread of the block once the block's data is written:
 // true in the block that arrives last of n at *counter, which also resets
@@ -350,10 +293,6 @@ int launch_form(KernelFn<T> kernel, const void* x, const void* dy,
       static_cast<float*>(part), static_cast<float*>(dscale),
       static_cast<unsigned*>(counters), N, E, eps);
   return (int)cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>

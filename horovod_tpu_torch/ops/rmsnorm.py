@@ -10,12 +10,16 @@ scale's.  A CUDA tensor launches the kernels (float32 or bfloat16 ``x``;
 the scale goes to them as float32) or raises; a CPU tensor takes
 :func:`rms_norm_reference` and :func:`rms_norm_backward_reference`.
 
-The backward is one launch: the kernel sums its per-block dscale partials
+Each call is one launch.  Both kernels hold rows of up to 2 KB in
+registers, 16-byte vectors a lane (the bf16 width 768 of every path); other
+widths and unaligned tensors take each kernel's loop form, chosen by shape
+in the kernel's entry point.  The forward's rows do not depend on N: a row
+has the same bits alone, in a decode batch or in a training step
+(``csrc/rmsnorm_fwd.cu``).  The backward sums its per-block dscale partials
 itself, in block order, so the wrapper sums nothing.  The last block to
 finish is found with ticket counters that live in a small zeroed workspace,
-allocated once per (device, stream) and left zeroed by every launch.  Rows
-of up to 2 KB whose width is a multiple of 8 are held in registers; wider
-or ragged rows take the kernel's loop form (``csrc/rmsnorm_bwd.cu``).
+allocated once per (device, stream) and left zeroed by every launch
+(``csrc/rmsnorm_bwd.cu``).
 
 The JAX package leaves the kernels off by default because XLA fuses the
 plain norm into its neighbours on the TPU.  Eager PyTorch fuses nothing, so

@@ -148,17 +148,71 @@ def test_flash_autograd_runs_the_kernels(cuda):
         _close(g, w, torch.bfloat16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,e", [(1, 768), (1000, 768), (37, 384)])
-def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, e):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(n, e, generator=g, device=cuda, dtype=dtype)
-    scale = 1 + 0.1 * torch.randn(e, generator=g, device=cuda)
+def _rms_inputs(cuda, dtype, n, e, seed=1, unaligned=False):
+    """x [n, e] and an f32 scale; ``unaligned`` puts x one element past a
+    16-byte boundary (a contiguous view), which the register form refuses."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n * e + unaligned, generator=g, device=cuda, dtype=dtype)
+    x = x[1:] if unaligned else x
+    return x.view(n, e), 1 + 0.1 * torch.randn(e, generator=g, device=cuda)
+
+
+# Widths each form of the forward kernel takes: rows of at most 2 KB whose
+# width is a multiple of the 16-byte vector (8 values in bf16, 4 in f32) in
+# registers (bf16 768, 384 and 1024; f32 384 and 100), the rest in the
+# loop form (f32 768 and 4096; bf16 100 and 4096; an unaligned x).  A
+# block takes ceil(N / SMs) rows, up to 8, so N = 301 (3 a block) and 1001
+# (8 a block) leave warps past N in the last block, and N = 37 gives each
+# row a block of its own.  N = 8192 is more rows than the grid's warps, so
+# each warp takes several.
+RMS_FWD_FORMS = [   # (dtype, E, unaligned, form)
+    (torch.bfloat16, 768, False, "regs"), (torch.bfloat16, 384, False, "regs"),
+    (torch.bfloat16, 1024, False, "regs"), (torch.float32, 384, False, "regs"),
+    (torch.float32, 100, False, "regs"), (torch.float32, 768, False, "loop"),
+    (torch.bfloat16, 100, False, "loop"), (torch.float32, 4096, False, "loop"),
+    (torch.bfloat16, 4096, False, "loop"), (torch.bfloat16, 768, True, "loop")]
+
+
+@pytest.mark.parametrize("n", [1, 8, 37, 301, 1000, 1001, 8192])
+@pytest.mark.parametrize("dtype,e,unaligned,form", RMS_FWD_FORMS)
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, e, unaligned, form, n):
+    x, scale = _rms_inputs(cuda, dtype, n, e, unaligned=unaligned)
+    before = trn.KERNEL.launches
     y = trn.rms_norm(x, scale)
     torch.cuda.synchronize()
+    assert trn.KERNEL.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
     tol = 1e-5 if dtype == torch.float32 else 1.6e-2
     torch.testing.assert_close(y.float(), trn.rms_norm_reference(
         x, scale).float(), atol=1e-5, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,e,unaligned,form", RMS_FWD_FORMS)
+def test_rmsnorm_forward_is_one_launch_of_its_form(cuda, dtype, e, unaligned,
+                                                   form):
+    # One call is one kernel on the card, and the shape and alignment pick
+    # the form.
+    x, scale = _rms_inputs(cuda, dtype, 2048, e, unaligned=unaligned)
+    names = trace.kernels_in_one_call(lambda: trn.rms_norm(x, scale))
+    assert len(names) == 1 and trace.kind_of(names[0]) == "rmsnorm_fwd", names
+    assert ("rmsnorm_fwd_regs_kernel" in names[0]) == (form == "regs"), names
+
+
+@pytest.mark.parametrize("dtype,e", [
+    (torch.bfloat16, 768), (torch.float32, 384),     # register form
+    (torch.bfloat16, 100), (torch.float32, 768)])    # loop form
+def test_rmsnorm_forward_rows_do_not_depend_on_n(cuda, dtype, e):
+    # A row has the same bits whatever the call's N: alone (decode of one),
+    # within 8 rows (a decode batch) and within 1024 (a prefill).
+    x, scale = _rms_inputs(cuda, dtype, 1024, e, seed=5)
+    full = trn.rms_norm(x, scale)
+    for i in (0, 7, 8, 517, 1023):
+        alone = trn.rms_norm(x[i:i + 1], scale)
+        first = min(i - i % 8, 1016)
+        batch = trn.rms_norm(x[first:first + 8], scale)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[i])
+        assert torch.equal(batch[i - first], full[i])
 
 
 # Widths each form of the backward kernel takes: rows of at most 2 KB whose

@@ -246,6 +246,8 @@ def test_library_name_follows_included_headers_and_flags(monkeypatch,
     assert [os.path.basename(p) for p in kernel.sources()] == [
         "flash_fwd.cu", "hopper.cuh"]
     norm = _build.Kernel("rmsnorm_fwd", "hvd_rmsnorm_fwd", [])
+    assert [os.path.basename(p) for p in norm.sources()] == [
+        "rmsnorm_fwd.cu", "rmsnorm.cuh"]
     before, norm_before = kernel.library_path(), norm.library_path()
     (csrc / "unrelated.cuh").write_text("// included by no kernel\n")
     assert kernel.library_path() == before
@@ -254,7 +256,7 @@ def test_library_name_follows_included_headers_and_flags(monkeypatch,
     edited = kernel.library_path()
     assert edited != before
     assert os.path.basename(edited).startswith("flash_fwd-")
-    assert norm.library_path() == norm_before   # includes no header
+    assert norm.library_path() == norm_before   # not its header
     monkeypatch.setattr(_build, "NVCC_FLAGS",
                         _build.NVCC_FLAGS + ("-lineinfo",))
     assert kernel.library_path() != edited

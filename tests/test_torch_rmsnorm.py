@@ -21,7 +21,9 @@ def _inputs(n, e, seed=0):
             (1.0 + 0.1 * rng.standard_normal(e)).astype(np.float32))
 
 
-@pytest.mark.parametrize("n,e", [(300, 384), (1024, 768)])
+# (n, e): rows no multiple of any block, a prefill, and the decode shapes
+# (one slot, eight slots).
+@pytest.mark.parametrize("n,e", [(300, 384), (1024, 768), (1, 768), (8, 768)])
 def test_forward_matches_jax_kernel(n, e):
     x, s = _inputs(n, e)
     want = jrn.rms_norm(jnp.asarray(x), jnp.asarray(s))
@@ -30,8 +32,9 @@ def test_forward_matches_jax_kernel(n, e):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_bf16_output_dtype_and_values():
-    x, s = _inputs(64, 256)
+@pytest.mark.parametrize("n,e", [(64, 256), (1000, 768)])
+def test_bf16_output_dtype_and_values(n, e):
+    x, s = _inputs(n, e)
     want = jrn.rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(s))
     got = trn.rms_norm(torch.from_numpy(x).to(torch.bfloat16),
                        torch.from_numpy(s))

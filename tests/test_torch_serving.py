@@ -369,16 +369,56 @@ def test_breakdown_counts_device_time_once_and_by_kind(monkeypatch):
         "CUtensorMap_st, CUtensorMap_st",
         "void (anonymous namespace)::tc::flash_bwd_dkv_wgmma_kernel<128>(",
         "void (anonymous namespace)::tc::flash_bwd_dq_wgmma_kernel<128, 2>(",
-        "void rmsnorm_fwd_kernel<float>", "void rmsnorm_bwd_kernel<float>",
+        "void rmsnorm_fwd_kernel<float>",
+        "void (anonymous namespace)::rmsnorm_fwd_regs_kernel<__nv_bfloat16, "
+        "3>(", "void rmsnorm_bwd_kernel<float>",
         "void (anonymous namespace)::rmsnorm_bwd_regs_kernel<__nv_bfloat16, "
         "3>(", "nvjet_tst_64x8_64x16", "sm90_xmma_gemm_bf16bf16",
         "softmax_warp_forward")] == \
         ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd",
-         "flash_bwd_dkv", "flash_bwd_dq", "rmsnorm_fwd", "rmsnorm_bwd",
-         "rmsnorm_bwd", "matmul", "matmul", "other"]
+         "flash_bwd_dkv", "flash_bwd_dq", "rmsnorm_fwd", "rmsnorm_fwd",
+         "rmsnorm_bwd", "rmsnorm_bwd", "matmul", "matmul", "other"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         breakdown.main([])
+
+
+class _FakeProfile:
+    """Stands in for ``torch.profiler.profile``: each trace holds the next
+    list of kernel names of ``traces``."""
+
+    def __init__(self, traces):
+        self.traces = traces
+
+    def __call__(self, activities):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def export_chrome_trace(self, path):
+        names = self.traces.pop(0)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": [
+                {"ph": "X", "cat": "kernel", "name": n, "ts": 0, "dur": 1}
+                for n in names]}, f)
+
+
+@pytest.mark.parametrize("traces,want,calls", [
+    ([["k"]], ["k"], 2),                       # the first trace holds it
+    ([[], ["k", "k2"]], ["k", "k2"], 3),       # a lost trace is retaken
+    ([[], [], []], [], 4)])                    # no kernel: still nothing
+def test_kernels_in_one_call_retraces_a_lost_trace(monkeypatch, traces, want,
+                                                   calls):
+    fake = _FakeProfile(traces)
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ran = []
+    assert trace.kernels_in_one_call(lambda: ran.append(1)) == want
+    assert len(ran) == calls and not fake.traces   # warm-up + each trace
 
 
 def test_make_backend_builds_a_seeded_model_on_cpu(monkeypatch):
