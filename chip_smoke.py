@@ -17,7 +17,9 @@ line each:
                  kernel, the plain version and
                  ``F.scaled_dot_product_attention`` (a yardstick only), the
                  card's bound for the same work and its share of the
-                 kernel's time;
+                 kernel's time; and at ``[1, 1024, 6, D]`` for D = 96
+                 (zero-padded to 128) and 256 (the CUDA-core route), and
+                 with q, k, v (and dO) as strided views;
 4. flash_bwd   — the dq and dk/dv kernels against their plain versions on
                  the same ``(q, k, v, dO, lse, Δ)``, same fields (the
                  yardstick is the backward of the library call), each
@@ -47,8 +49,18 @@ line each:
                  loss, exact launches of all five kernels per step, one
                  step's gradients through the kernels against the same step
                  through the plain versions, step time, tokens/s, MFU, peak
-                 memory and device time by kind of kernel;
-9. kernels     — ``{"kernels": [...]}``, one entry per kernel of the path,
+                 memory, device time by kind of kernel and kernels per
+                 step, and the overlap plan (the width-1 bypass);
+9. resnet      — the ResNet-50 step of ``python -m
+                 horovod_tpu_torch.train_resnet`` at full size (128 images
+                 of 224×224×3 on the card, bf16 over f32 parameters,
+                 ``DistributedOptimizer(SGD(0.01, momentum=0.9))``): 3
+                 warm-up and 8 timed steps, img/s, step time, device busy
+                 time and idle share, device time by kind, peak memory, a
+                 finite loss falling on the fixed batch, and
+                 ``overlap_plan()``, which must be the adaptive planner's
+                 width-1 bypass;
+10. kernels    — ``{"kernels": [...]}``, one entry per kernel of the path,
                  with the form it runs in for bf16 inputs (the three flash
                  kernels on the tensor cores, the two RMSNorm kernels on
                  the CUDA cores) and a line on its design.
@@ -99,13 +111,23 @@ FLASH_BWD_SHAPES = (
     (1, 1000, 1000, True, 0), (1, 2048, 2048, True, 0),
     (1, 1024, 1024, False, 0), (1, 128, 1024, True, 896))
 FLASH_MAIN = (8, 1024, 1024, True, 0)   # one training step's attention
+# Rows past the training shapes, each (B, S_q, S_k, causal, q_offset, D,
+# strided): head dims the wrappers pad (96 -> 128) or route to the CUDA
+# cores (256), and q, k, v, dO as transposed views of [B, H, S, D].
+FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False),
+              (1, 1024, 1024, True, 0, 256, False),
+              (1, 1024, 1024, True, 0, 128, True))
 RMS_ROWS = (1, 8, 1000, 2048, 8192)     # [N, 768] bf16
 # (dtype, N) of the RMSNorm forward's checks: the bf16 rows of every path
 # (register form) and the f32 training step's rows (3 KB: the loop form).
 RMS_CASES = tuple((torch.bfloat16, n) for n in RMS_ROWS) + (
     (torch.float32, 8192),)
-RMS_BWD_ROWS = (1000, 2048, 8192)
+# (N, E) of the RMSNorm backward's checks: the 162M step's width, and
+# widths past 7168 (the wide form, a block a row).
+RMS_BWD_CASES = ((1000, 768), (2048, 768), (8192, 768), (1024, 8192),
+                 (1024, 12288))
 RMS_MAIN = 8192                         # one training step's tokens
+RESNET_WARMUP, RESNET_STEPS = 3, 8
 # bf16 outputs: |kernel - plain| <= ATOL + RTOL * |plain|.  Both compute in
 # f32 and round once to bf16 (ulp 2**-8 relative), so they differ by at
 # most about one ulp; ATOL covers f32 summation order near zero.  The
@@ -263,23 +285,46 @@ def _sdpa(causal, q_off, visible):
         q, k, v, attn_mask=mask, is_causal=bool(causal and not q_off))
 
 
+def _bshd(gen, b, s, h, d, strided):
+    """A bf16 ``[b, s, h, d]`` tensor on the card; ``strided``: a
+    transposed view of a ``[b, h, s, d]`` one."""
+    if strided:
+        return torch.randn(b, h, s, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+    return torch.randn(b, s, h, d, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _is_main(row) -> bool:
+    return tuple(row[:5]) == FLASH_MAIN and tuple(row[5:]) == (128, False)
+
+
+def _flash_route(d: int) -> str:
+    """The route of a bf16 call at head dim ``d`` (see
+    ``ops/flash_attention.py``)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    dk = fa.kernel_head_dim(d)
+    route = "tensor cores" if dk in (64, 128) else "CUDA cores"
+    return route + (f", zero-padded to D={dk}" if dk != d else "")
+
+
 def phase_flash() -> dict:
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    h, d = 6, 128
+    h = 6
     worst, main = 0.0, None
-    for b, s_q, s_k, causal, q_off in FLASH_SHAPES:
-        q = torch.randn(b, s_q, h, d, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        k, v = (torch.randn(b, s_k, h, d, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
+    for row_key in tuple(r + (128, False) for r in FLASH_SHAPES) + FLASH_MORE:
+        b, s_q, s_k, causal, q_off, d, strided = row_key
+        q = _bshd(gen, b, s_q, h, d, strided)
+        k, v = (_bshd(gen, b, s_k, h, d, strided) for _ in range(2))
         out, lse = fa.flash_attention_with_lse(q, k, v, causal, q_off, 0)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal,
                                                         q_off, 0)
         torch.cuda.synchronize()
         tag = f"flash B={b} S_q={s_q} S_k={s_k} causal={causal} " \
-              f"q_offset={q_off}"
+              f"q_offset={q_off} D={d} strided={strided}"
         err = check_close(tag + " out", out, ref_out, FLASH_ATOL, BF16_RTOL)
         lse_err = check_close(tag + " lse", lse, ref_lse, LSE_ATOL, 0.0)
         worst = max(worst, err, lse_err)
@@ -292,6 +337,7 @@ def phase_flash() -> dict:
         lib = _sdpa(causal, q_off, visible)
         row = dict(
             shape=[b, s_q, h, d], s_k=s_k, causal=causal, q_offset=q_off,
+            strided=strided, route=_flash_route(d),
             max_abs_err=err, lse_max_abs_err=lse_err,
             kernel_ms=time_ms(lambda: fa.flash_attention_with_lse(
                 q, k, v, causal, q_off, 0)),
@@ -301,7 +347,7 @@ def phase_flash() -> dict:
             bound_by=bound_by, flops=flops, bytes=nbytes)
         row["share_of_bound"] = bound_ms / row["kernel_ms"]
         emit("flash", **row)
-        if (b, s_q, s_k, causal, q_off) == FLASH_MAIN:
+        if _is_main(row_key):
             main = row
     main["max_abs_err"] = worst
     return main
@@ -313,14 +359,14 @@ def phase_flash_bwd() -> tuple[dict, dict]:
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    h, d = 6, 128
+    h = 6
     worst = {"dq": 0.0, "dkv": 0.0}
     main = {}
-    for b, s_q, s_k, causal, q_off in FLASH_BWD_SHAPES:
-        q, dout = (torch.randn(b, s_q, h, d, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(b, s_k, h, d, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
+    for row_key in tuple(r + (128, False)
+                         for r in FLASH_BWD_SHAPES) + FLASH_MORE:
+        b, s_q, s_k, causal, q_off, d, strided = row_key
+        q, dout = (_bshd(gen, b, s_q, h, d, strided) for _ in range(2))
+        k, v = (_bshd(gen, b, s_k, h, d, strided) for _ in range(2))
         out, lse = fa.flash_attention_with_lse(q, k, v, causal, q_off, 0)
         delta = (dout.float() * out.float()).sum(dim=-1)
         args = (q, k, v, dout, lse, delta, causal, q_off, 0)
@@ -330,7 +376,7 @@ def phase_flash_bwd() -> tuple[dict, dict]:
         want_dk, want_dv = fa.flash_bwd_dkv_reference(*args)
         torch.cuda.synchronize()
         tag = f"flash_bwd B={b} S_q={s_q} S_k={s_k} causal={causal} " \
-              f"q_offset={q_off}"
+              f"q_offset={q_off} D={d} strided={strided}"
         err = {"dq": check_close(tag + " dq", dq, want_dq,
                                  GRAD_ATOL * want_dq.abs().max().item(),
                                  BF16_RTOL),
@@ -365,14 +411,15 @@ def phase_flash_bwd() -> tuple[dict, dict]:
             worst[name] = max(worst[name], err[name])
             row = dict(
                 kernel=f"flash_bwd_{name}", shape=[b, s_q, h, d], s_k=s_k,
-                causal=causal, q_offset=q_off, max_abs_err=err[name],
+                causal=causal, q_offset=q_off, strided=strided,
+                route=_flash_route(d), max_abs_err=err[name],
                 kernel_ms=time_ms(kernel[name]),
                 plain_ms=time_ms(plain[name]), library_ms=library_ms,
                 library_computes="dq, dk and dv", bound_ms=bound_ms,
                 bound_by=bound_by, flops=flops, bytes=nbytes)
             row["share_of_bound"] = bound_ms / row["kernel_ms"]
             emit("flash_bwd", **row)
-            if (b, s_q, s_k, causal, q_off) == FLASH_MAIN:
+            if _is_main(row_key):
                 main[name] = row
         del lib_out
     for name in main:
@@ -457,11 +504,14 @@ def phase_rmsnorm_bwd() -> dict:
     from horovod_tpu_torch.utils import trace
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    e = 768
-    scale = 1.0 + 0.1 * torch.randn(e, generator=gen, device="cuda")
+    scales = {}
     worst, main = 0.0, None
     lib_fn = getattr(F, "rms_norm", None)
-    for n in RMS_BWD_ROWS:
+    for n, e in RMS_BWD_CASES:
+        if e not in scales:
+            scales[e] = 1.0 + 0.1 * torch.randn(e, generator=gen,
+                                                device="cuda")
+        scale = scales[e]
         x, dy = (torch.randn(n, e, generator=gen, device="cuda",
                              dtype=torch.bfloat16) for _ in range(2))
         dx, dscale = rn.rms_norm_backward(x, scale, dy)
@@ -471,10 +521,11 @@ def phase_rmsnorm_bwd() -> dict:
         names = trace.kernels_in_one_call(
             lambda: rn.rms_norm_backward(x, scale, dy))
         if len(names) != 1 or "rmsnorm_bwd" not in names[0]:
-            raise AssertionError(f"rmsnorm_bwd N={n}: one call ran {names}")
-        err = max(check_close(f"rmsnorm_bwd N={n} dx", dx, want_dx,
+            raise AssertionError(f"rmsnorm_bwd N={n} E={e}: one call ran "
+                                 f"{names}")
+        err = max(check_close(f"rmsnorm_bwd N={n} E={e} dx", dx, want_dx,
                               RMS_ATOL, BF16_RTOL),
-                  check_close(f"rmsnorm_bwd N={n} dscale", dscale,
+                  check_close(f"rmsnorm_bwd N={n} E={e} dscale", dscale,
                               want_dscale,
                               DSCALE_ATOL_PER_SQRT_ROW * n ** 0.5, 1e-5))
         worst = max(worst, err)
@@ -498,7 +549,7 @@ def phase_rmsnorm_bwd() -> dict:
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             flops=flops, bytes=nbytes, kernels_per_call=names)
         emit("rmsnorm_bwd", **row)
-        if n == RMS_MAIN:
+        if (n, e) == (RMS_MAIN, 768):
             main = row
     main["max_abs_err"] = worst
     return main
@@ -646,6 +697,7 @@ def phase_train() -> dict:
     from horovod_tpu_torch import train_transformer as tt
     from horovod_tpu_torch.models.transformer import Transformer
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.schedule_plan import overlap_plan
     from horovod_tpu_torch.utils import trace
 
     basics.init()   # NCCL, world 1: the reduce is the identity
@@ -705,6 +757,10 @@ def phase_train() -> dict:
             raise AssertionError(f"train losses not finite and falling: "
                                  f"{losses}")
 
+        plan = overlap_plan()
+        if not _is_bypass(plan):
+            raise AssertionError(f"train overlap plan at world 1: {plan}")
+
         with tempfile.TemporaryDirectory() as tmp:
             breakdown = trace.measure(
                 "train_step", lambda: tt.train_step(model, opt, tokens), 3,
@@ -721,10 +777,76 @@ def phase_train() -> dict:
              / PEAK_BF16_FLOPS,
              launches=launches, launches_per_step=per_step,
              max_memory_allocated=peak, breakdown=breakdown,
-             step_vs_plain=checks)
+             step_vs_plain=checks, overlap_plan=plan)
     finally:
         basics.shutdown()
     return launches
+
+
+def _is_bypass(plan) -> bool:
+    """The adaptive planner's width-1 bypass: no hook, no collective."""
+    return (plan is not None and plan["planner"] == "adaptive"
+            and plan["width"] == 1 and not plan["chained"]
+            and plan["reason"].startswith("width-1 bypass"))
+
+
+def phase_resnet() -> None:
+    """ResNet-50 on synthetic data (``train_resnet``) at full size on the
+    card: the step of the ``BASELINE.json`` metric.  Its convolutions and
+    batch norms are cuDNN's and PyTorch's; none of the port's kernels is on
+    this path, and their counts over the run are reported (0 each)."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_resnet as tr
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.schedule_plan import overlap_plan
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()   # NCCL, world 1
+    try:
+        torch.backends.cudnn.benchmark = True
+        dev = basics.device()
+        batch = 128
+        t0 = time.monotonic()
+        model, opt = tr.make_trainer(dev, SEED)
+        x, y = tr.synthetic_batch(batch, dev)
+        setup_s = time.monotonic() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses = [tr.train_step(model, opt, x, y)
+                  for _ in range(RESNET_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [tr.train_step(model, opt, x, y)
+                   for _ in range(RESNET_STEPS)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / RESNET_STEPS
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        plan = overlap_plan()
+        if not _is_bypass(plan) or plan["tensor_count"] != 161:
+            raise AssertionError(f"resnet overlap plan at world 1: {plan}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"resnet losses not finite and falling: "
+                                 f"{losses}")
+        with tempfile.TemporaryDirectory() as tmp:
+            breakdown = trace.measure(
+                "resnet_step", lambda: tr.train_step(model, opt, x, y), 3,
+                tmp)
+        img_s = batch / step_s
+        emit("resnet", model="ResNet-50 v1.5 (1000 classes, bf16 compute / "
+             "f32 params, channels-last)", params=n_params, batch=batch,
+             image=[tr.IMAGE, tr.IMAGE, 3], processes=basics.size(),
+             backend=torch.distributed.get_backend(),
+             cudnn_benchmark=torch.backends.cudnn.benchmark, setup_s=setup_s,
+             losses=losses, step_ms=step_s * 1e3, img_per_s=img_s,
+             vs_baseline=img_s / tr.BASELINE_IMG_PER_SEC_PER_DEVICE,
+             max_memory_allocated=peak, breakdown=breakdown,
+             launches=launches, overlap_plan=plan)
+    finally:
+        basics.shutdown()
 
 
 def main() -> int:
@@ -745,8 +867,9 @@ def main() -> int:
     serve_launches = phase_serve()
     if not (serve_launches["flash_fwd"] and serve_launches["rmsnorm_fwd"]):
         raise AssertionError("the serve run launched no forward kernel")
-    # Launches on this slice's main path: the training run.
+    # Launches on the training path: the 162M run.
     launches = phase_train()
+    phase_resnet()
     entries = []
     tensor_cores, cuda_cores = "tensor cores (wgmma)", "CUDA cores"
     ring = "streamed through a two-stage TMA / mbarrier ring"

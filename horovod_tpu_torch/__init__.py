@@ -10,10 +10,13 @@ same contract; a CUDA tensor launches the kernel, a CPU tensor takes the
 plain version.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when asked for CUDA without it.
 
-Ported so far: the serving path of the decoder transformer (slice 1) and
-its synchronous data-parallel training step (slice 2): the ``hvd``-style
+Ported so far: the serving path of the decoder transformer (slice 1), its
+synchronous data-parallel training step (slice 2): the ``hvd``-style
 surface below, the backward kernels of flash attention and RMSNorm, and
-``python -m horovod_tpu_torch.train_transformer``.  Importing the package
+``python -m horovod_tpu_torch.train_transformer``; and the rest of the
+main path: gradient overlap in ``DistributedOptimizer`` with its bucket
+planner (``overlap_plan()``), ResNet and the MNIST models, and
+``python -m horovod_tpu_torch.train_resnet``.  Importing the package
 creates no process group; :func:`init` does.
 """
 
@@ -28,6 +31,7 @@ from horovod_tpu_torch.ops.collective_ops import (allgather, allreduce,
                                                   grouped_allreduce)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
+from horovod_tpu_torch.ops.schedule_plan import overlap_plan
 from horovod_tpu_torch.training import (DistributedOptimizer,
                                         broadcast_object,
                                         broadcast_optimizer_state,
@@ -42,6 +46,7 @@ __all__ = [
     "allgather", "allreduce", "broadcast", "broadcast_object",
     "broadcast_optimizer_state", "broadcast_parameters", "cross_rank",
     "cross_size", "grouped_allreduce", "init", "is_initialized",
-    "local_rank", "local_size", "num_chips", "rank", "resolve_device",
+    "local_rank", "local_size", "num_chips", "overlap_plan", "rank",
+    "resolve_device",
     "scale_learning_rate", "shutdown", "size", "softmax_cross_entropy",
 ]

@@ -50,11 +50,16 @@
 // MXU pass the TPU kernel's f32 p . dO product takes
 // (horovod_tpu/ops/flash_attention.py:142-146, :560-564).
 //
-// float32, the CUDA-core route (chosen by dtype, never on failure): f32
-// inputs cannot meet the f32 checks' 1e-4 through bf16 tensor-core
-// products, so they keep the first version's design: one block per (64-key
-// tile, batch*head) looping over 64-row Q/dO tiles staged through shared
-// memory in f32; each warp owns 8 keys and updates them 4 at a time.
+// The CUDA-core route (chosen by dtype and head dim, never on failure):
+// float32 at every head dim, since f32 inputs cannot meet the f32 checks'
+// 1e-4 through bf16 tensor-core products, and both dtypes at D = 256,
+// where the tensor-core kernel's tiles are not instantiated.  It keeps the
+// first version's design: one block per (64-key tile, batch*head) looping
+// over 64-row Q/dO tiles staged through shared memory in f32; each warp
+// owns 8 keys and updates them 4 at a time.  At D = 256 the key tile is 32
+// keys (4 a warp), so that the tiles fit the 227 KB a block may use
+// (209 KB).  bf16 inputs are widened on load, dk and dv rounded once, and
+// p stays f32 for dv, as in the plain version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,32 +73,47 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kBK = 64;       // keys per block
 constexpr int kBQ = 64;       // q rows per Q/dO tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kKeysPerWarp = kBK / kWarps;   // 8
 constexpr int kR = 4;                        // keys updated together
-constexpr int kGroups = kKeysPerWarp / kR;   // 2
 
-// This route takes float32 only; the conversions keep its body generic.
+// Keys per block: 64, or 32 at D = 256, where 64 keys of K and V beside
+// the q~ and dO tiles, all in f32, would pass the 227 KB a block may use.
+template <int D>
+struct Keys {
+  static constexpr int kBK = D > 128 ? 32 : 64;
+  static constexpr int kPerWarp = kBK / kWarps;   // 8, or 4
+  static constexpr int kGroups = kPerWarp / kR;   // 2, or 1
+};
+
+// This route takes float32, and bfloat16 at D = 256.
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // Rounds an f32 value to T and back: the TPU kernel's operand cast.
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
-constexpr size_t smem_bytes(int d) {
+template <int D>
+constexpr size_t smem_bytes() {
   // K and V tiles [BK][D] (read by broadcast), q~ and dO tiles [BQ][D+1]
   // (padded: lane j reads row j, so the pad puts neighbouring lanes on
   // neighbouring banks), per-warp p and ds [warps][R][BQ] each, and
   // per-row lse*log2e, delta and "attended to something" flags [BQ].
-  return sizeof(float) * (size_t)(2 * kBK * d + 2 * kBQ * (d + 1) +
+  constexpr int kBK = Keys<D>::kBK;
+  return sizeof(float) * (size_t)(2 * kBK * D + 2 * kBQ * (D + 1) +
                                   2 * kWarps * kR * kBQ + 3 * kBQ);
 }
 
@@ -106,6 +126,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, int H, int Sq, int Sk, int causal,
                      int q_offset, int k_offset, float qscale) {
   constexpr int DL = D / 32;   // dk/dv dims per lane
+  constexpr int kBK = Keys<D>::kBK, kKeysPerWarp = Keys<D>::kPerWarp,
+                kGroups = Keys<D>::kGroups;
   extern __shared__ float smem[];
   float* sk = smem;
   float* sv = sk + kBK * D;
@@ -265,12 +287,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int B,
            int H, int Sq, int Sk, int causal, int q_offset, int k_offset,
            float qscale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  constexpr size_t smem = smem_bytes<D>();
+  static_assert(smem <= 232448, "the tiles pass a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + kBK - 1) / kBK, B * H);
+  dim3 grid((Sk + Keys<D>::kBK - 1) / Keys<D>::kBK, B * H);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -528,10 +551,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v,
-// dout, dk and dv of that dtype, [B, S, H, D] contiguous; lse and delta
-// float32 [B, Sq, H].  qscale is D**-0.5 * log2(e), rounded to float by the
-// caller.  Returns a cudaError_t, or -1 for a dtype/head_dim combination
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores at D = 64
+// and 128, CUDA cores at D = 256); q, k, v, dout, dk and dv of that dtype,
+// [B, S, H, D] contiguous; lse and delta float32 [B, Sq, H].  qscale is
+// D**-0.5 * log2(e) of the caller's head dim, rounded to float by the
+// caller (which zero-pads other head dims to these).  Returns a cudaError_t, or -1 for a dtype/head_dim combination
 // this kernel was not built for.
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -544,6 +568,10 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 64)
     return tc::launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 128)

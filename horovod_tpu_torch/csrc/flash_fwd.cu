@@ -44,11 +44,16 @@
 // p, and on rows that see only a few keys that breaks the 1e-3 absolute
 // agreement the card tests and chip_smoke.py hold the kernel to.)
 //
-// float32, the CUDA-core route (chosen by dtype, never on failure): f32
-// inputs cannot meet the f32 checks' 1e-5 through bf16 tensor-core
-// products, so they keep the first version's design: one block per (64-row
-// q tile, batch*head) looping over 64-key K/V tiles staged through shared
-// memory in f32; each warp owns 8 q rows and updates them 4 at a time.
+// The CUDA-core route (chosen by dtype and head dim, never on failure):
+// float32 at every head dim, since f32 inputs cannot meet the f32 checks'
+// 1e-5 through bf16 tensor-core products, and both dtypes at D = 256,
+// where the tensor-core kernel's tiles are not instantiated.  It keeps the
+// first version's design: one block per (64-row q tile, batch*head)
+// looping over 64-key K/V tiles staged through shared memory in f32 (200 KB
+// at D = 256, within the 227 KB a block may use); each warp owns 8 q rows
+// and updates them 4 at a time.  bf16 inputs are widened on load and the
+// output rounded once, so that route keeps p in f32, as the plain version
+// does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,13 +75,20 @@ constexpr int kRowsPerWarp = kBQ / kWarps;   // 8
 constexpr int kR = 4;                        // rows updated together
 constexpr int kGroups = kRowsPerWarp / kR;   // 2
 
-// This route takes float32 only; the conversions keep its body generic.
+// This route takes float32, and bfloat16 at D = 256.
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -242,7 +254,8 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int B, int H, int Sq, int Sk, int causal, int q_offset,
            int k_offset, float qscale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  constexpr size_t smem = smem_bytes(D);
+  static_assert(smem <= 232448, "the tiles pass a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -511,10 +524,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  qscale is
-// D**-0.5 * log2(e), rounded to float by the caller.  Returns a
-// cudaError_t, or -1 for a dtype/head_dim combination this kernel was not
-// built for.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores at D = 64
+// and 128, CUDA cores at D = 256).  qscale is the caller's head dim's
+// D**-0.5 * log2(e), rounded to float (the caller zero-pads other head dims
+// up to one of these).  Returns a cudaError_t, or -1 for a dtype/head_dim
+// combination this kernel was not built for.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int dtype, int B, int H,
                              int Sq, int Sk, int D, int causal, int q_offset,
@@ -524,6 +538,10 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
     return launch<float, 64>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 64)
     return tc::launch<64>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 128)

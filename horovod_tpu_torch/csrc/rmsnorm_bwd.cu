@@ -48,8 +48,9 @@
 // thread); at four vectors a lane (E = 1024 in bf16) ptxas spills 40
 // bytes to stay there, at three (E = 768) nothing.
 //
-// The caller caps the grid (ops/rmsnorm.py) and sets it from N alone, so
-// the order of every sum, and the result, does not depend on the card.
+// The caller caps the grid (ops/rmsnorm.py) and sets it from N and E
+// alone, so the order of every sum, and the result, does not depend on the
+// card.
 //
 // Widths the register form does not take -- E not a multiple of 8, rows
 // of more than kRegRowBytes (E > 1024 in bf16, E > 512 in f32), or an
@@ -57,6 +58,16 @@
 // same entry point: three passes over the row in 2- or 4-byte loads (the
 // later ones served from L1), the dscale partials accumulated per warp in
 // shared memory.  Both forms end in the same two-level sum.
+//
+// Rows past kMaxWarpRowsE (7168) take the wide form: the loop form's eight
+// rows of f32 partials would pass the 227 KB of shared memory a block may
+// use.  The whole block takes one row at a time, each thread the columns
+// threadIdx.x + k * kThreads, so each column's dscale partial has one
+// owner and the block keeps one row of them: in shared memory while E
+// floats fit there (E <= 57856), else in the block's own row of the
+// partials scratch in device memory.  A row's two sums run over the block
+// (the warps' sums added in warp order), so dx is the same for a row alone
+// or among any N, and the form ends in the same two-level sum.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,6 +84,12 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kGroup = 16;       // blocks per group of the cross-block sum
 constexpr int kMaxVecs = 4;      // register form: 16-byte vectors per lane
 constexpr int kRegRowBytes = 32 * kMaxVecs * 16;
+// The loop form's kWarps rows of f32 partials fit a block's shared memory
+// up to this width; wider rows take the wide form.
+constexpr int kMaxWarpRowsE = 7168;
+// The wide form keeps its one row of partials in shared memory up to this
+// many bytes (the 227 KB a block may use, less room for its static arrays).
+constexpr size_t kMaxSmemRowBytes = 232448 - 1024;
 
 // Called by every thread of the block once the block's data is written:
 // true in the block that arrives last of n at *counter, which also resets
@@ -130,17 +147,21 @@ __device__ __forceinline__ void sum_rows(const float* part, int first,
     sum_rows_as<float>(part, first, stride, n, E, out);
 }
 
-// The block's kWarps shared-memory rows of dscale partials into its row of
-// part, then the two-level sum across blocks into dscale (see the top).
+// The block's kRows shared-memory rows of dscale partials into its row of
+// part (kRows = 0: the block accumulated into that row itself), then the
+// two-level sum across blocks into dscale (see the top).
+template <int kRows>
 __device__ void finish_dscale(const float* sacc, int E, float* part,
                               float* dscale, unsigned* counters) {
   __syncthreads();
   const int blocks = gridDim.x, b = blockIdx.x;
-  for (int i = threadIdx.x; i < E; i += kThreads) {
-    float t = 0.f;
+  if constexpr (kRows > 0) {
+    for (int i = threadIdx.x; i < E; i += kThreads) {
+      float t = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += sacc[(long)w * E + i];
-    part[(long)b * E + i] = t;
+      for (int w = 0; w < kRows; ++w) t += sacc[(long)w * E + i];
+      part[(long)b * E + i] = t;
+    }
   }
   const int groups = (blocks + kGroup - 1) / kGroup;
   const int g = b / kGroup, g0 = g * kGroup;
@@ -234,10 +255,10 @@ rmsnorm_bwd_regs_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
     for (int e = 0; e < kN; ++e) sacc[(long)warp * E + vi * kN + e] = acc[j][e];
   }
-  finish_dscale(sacc, E, part, dscale, counters);
+  finish_dscale<kWarps>(sacc, E, part, dscale, counters);
 }
 
-// The loop form, for any width up to the shared-memory cap.
+// The loop form, for any width up to kMaxWarpRowsE.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -271,7 +292,58 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       acc[i] = fmaf(d, xh, acc[i]);
     }
   }
-  finish_dscale(sacc, E, part, dscale, counters);
+  finish_dscale<kWarps>(sacc, E, part, dscale, counters);
+}
+
+// The sum of v over the block, the same bits in every thread: the warps'
+// sums added in warp order.  red holds kWarps floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) t += red[w];
+  __syncthreads();   // red is written again by the next call
+  return t;
+}
+
+// The wide form, for rows past kMaxWarpRowsE: a block per row (see the
+// top); the row of partials in shared memory (kInSmem) or in part.
+template <typename T, bool kInSmem>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                        const float* __restrict__ scale, T* __restrict__ dx,
+                        float* __restrict__ part, float* __restrict__ dscale,
+                        unsigned* __restrict__ counters, int N, int E,
+                        float eps) {
+  extern __shared__ float sacc[];   // [E] dscale partials, if kInSmem
+  __shared__ float red[kWarps];
+  float* acc = kInSmem ? sacc : part + (long)blockIdx.x * E;
+  for (int i = threadIdx.x; i < E; i += kThreads) acc[i] = 0.f;
+
+  for (int row = blockIdx.x; row < N; row += gridDim.x) {
+    const T* xr = x + (long)row * E;
+    const T* dyr = dy + (long)row * E;
+    T* dxr = dx + (long)row * E;
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < E; i += kThreads) {
+      const float f = to_f(xr[i]);
+      ss = fmaf(f, f, ss);
+    }
+    const float inv = rsqrtf(block_sum(ss, red) / (float)E + eps);
+    float gx = 0.f;
+    for (int i = threadIdx.x; i < E; i += kThreads)
+      gx = fmaf(to_f(dyr[i]) * scale[i], to_f(xr[i]) * inv, gx);
+    const float mean_gx = block_sum(gx, red) / (float)E;
+    for (int i = threadIdx.x; i < E; i += kThreads) {
+      const float d = to_f(dyr[i]);
+      const float xh = to_f(xr[i]) * inv;
+      dxr[i] = from_f<T>(inv * (d * scale[i] - xh * mean_gx));
+      acc[i] = fmaf(d, xh, acc[i]);
+    }
+  }
+  finish_dscale<kInSmem ? 1 : 0>(sacc, E, part, dscale, counters);
 }
 
 template <typename T>
@@ -279,11 +351,10 @@ using KernelFn = void (*)(const T*, const T*, const float*, T*, float*,
                           float*, unsigned*, int, int, float);
 
 template <typename T>
-int launch_form(KernelFn<T> kernel, const void* x, const void* dy,
-                const void* scale, void* dx, void* part, void* dscale,
-                void* counters, int N, int E, float eps, int blocks,
-                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kWarps * E;
+int launch_form(KernelFn<T> kernel, size_t smem, const void* x,
+                const void* dy, const void* scale, void* dx, void* part,
+                void* dscale, void* counters, int N, int E, float eps,
+                int blocks, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -299,6 +370,16 @@ template <typename T>
 int launch(const void* x, const void* dy, const void* scale, void* dx,
            void* part, void* dscale, void* counters, int N, int E, float eps,
            int blocks, cudaStream_t stream) {
+  if (E > kMaxWarpRowsE) {
+    const size_t row = sizeof(float) * (size_t)E;
+    if (row <= kMaxSmemRowBytes)
+      return launch_form<T>(rmsnorm_bwd_wide_kernel<T, true>, row, x, dy,
+                            scale, dx, part, dscale, counters, N, E, eps,
+                            blocks, stream);
+    return launch_form<T>(rmsnorm_bwd_wide_kernel<T, false>, 0, x, dy, scale,
+                          dx, part, dscale, counters, N, E, eps, blocks,
+                          stream);
+  }
   const int row_bytes = E * (int)sizeof(T);
   KernelFn<T> kernel = rmsnorm_bwd_kernel<T>;
   if (E % 8 == 0 && row_bytes <= kRegRowBytes && aligned16(x) &&
@@ -310,8 +391,9 @@ int launch(const void* x, const void* dy, const void* scale, void* dx,
       default: kernel = rmsnorm_bwd_regs_kernel<T, kMaxVecs>; break;
     }
   }
-  return launch_form<T>(kernel, x, dy, scale, dx, part, dscale, counters, N,
-                        E, eps, blocks, stream);
+  return launch_form<T>(kernel, sizeof(float) * (size_t)kWarps * E, x, dy,
+                        scale, dx, part, dscale, counters, N, E, eps, blocks,
+                        stream);
 }
 
 }  // namespace

@@ -91,3 +91,133 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     """Seeded random ``state_dict`` for :class:`Transformer` (CPU
     tensors; ``load_state_dict`` copies them to the model's device)."""
     return params_from_flax(flax_tree(cfg, seed), cfg)
+
+
+# -- ResNet and the MNIST models ---------------------------------------------
+#
+# The flax models (``horovod_tpu/models/resnet.py``, ``mnist.py``) keep
+# ``params`` and ``batch_stats`` as nested dicts; the port's models hold the
+# same numbers in a ``state_dict``.  Conv kernels are HWIO in flax and OIHW
+# here, Dense kernels ``[in, out]`` and ``[out, in]``; BatchNorm ``scale``,
+# ``bias``, ``mean`` and ``var`` carry over as they are.
+
+
+def _flax_layout(model) -> list[tuple[str, str, tuple, str]]:
+    """``(state_dict name, flax collection, flax path, kind)`` for every
+    tensor of a port :class:`~.resnet.ResNet`, :class:`~.mnist.MnistCNN` or
+    :class:`~.mnist.MnistMLP`; kind is ``conv``, ``dense`` or ``vec``."""
+    from horovod_tpu_torch.models import mnist, resnet
+
+    out = []
+
+    def conv(name, path, bias=False):
+        out.append((f"{name}.weight", "params", path + ("kernel",), "conv"))
+        if bias:
+            out.append((f"{name}.bias", "params", path + ("bias",), "vec"))
+
+    def norm(name, path):
+        for p in ("scale", "bias"):
+            out.append((f"{name}.{p}", "params", path + (p,), "vec"))
+        for s in ("mean", "var"):
+            out.append((f"{name}.{s}", "batch_stats", path + (s,), "vec"))
+
+    def dense(name, path):
+        out.append((f"{name}.weight", "params", path + ("kernel",), "dense"))
+        out.append((f"{name}.bias", "params", path + ("bias",), "vec"))
+
+    if isinstance(model, resnet.ResNet):
+        conv("conv_init", ("conv_init",))
+        norm("bn_init", ("bn_init",))
+        for i, block in enumerate(model.blocks):
+            pre, path = f"blocks.{i}", (f"{type(block).__name__}_{i}",)
+            for j in range(len(block.convs)):
+                conv(f"{pre}.convs.{j}", path + (f"Conv_{j}",))
+                norm(f"{pre}.norms.{j}", path + (f"BatchNorm_{j}",))
+            if block.conv_proj is not None:
+                conv(f"{pre}.conv_proj", path + ("conv_proj",))
+                norm(f"{pre}.norm_proj", path + ("norm_proj",))
+        dense("head", ("head",))
+    elif isinstance(model, mnist.MnistCNN):
+        for j in range(len(model.convs)):
+            conv(f"convs.{j}", (f"Conv_{j}",), bias=True)
+        for j in range(len(model.dense)):
+            dense(f"dense.{j}", (f"Dense_{j}",))
+    elif isinstance(model, mnist.MnistMLP):
+        for j in range(len(model.dense)):
+            dense(f"dense.{j}", (f"Dense_{j}",))
+    else:
+        raise TypeError(f"no flax layout for {type(model).__name__}")
+    return out
+
+
+def _to_torch(a, kind):
+    a = np.asarray(a, dtype=np.float32)
+    if kind == "conv":
+        a = a.transpose(3, 2, 0, 1)    # HWIO -> OIHW
+    elif kind == "dense":
+        a = a.T
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def from_flax(variables, model) -> dict:
+    """Flax ``{"params": ..., "batch_stats": ...}`` (numpy leaves) ->
+    ``state_dict`` of CPU f32 tensors for ``model`` (a port ResNet or MNIST
+    model); ``load_state_dict`` copies them to its device."""
+    sd = {}
+    for name, coll, path, kind in _flax_layout(model):
+        leaf = variables[coll]
+        for key in path:
+            leaf = leaf[key]
+        sd[name] = _to_torch(leaf, kind)
+    return sd
+
+
+def to_flax(state_dict, model) -> dict:
+    """The inverse of :func:`from_flax`: ``{"params", "batch_stats"}`` of
+    numpy float32 leaves in flax's layout."""
+    out: dict = {}
+    for name, coll, path, kind in _flax_layout(model):
+        a = state_dict[name].detach().float().cpu().numpy()
+        if kind == "conv":
+            a = a.transpose(2, 3, 1, 0)    # OIHW -> HWIO
+        elif kind == "dense":
+            a = a.T
+        node = out.setdefault(coll, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return out
+
+
+def init_variables(model, seed: int = 0) -> dict:
+    """Seeded random variables for ``model`` in flax's layout, drawn from
+    an explicit ``torch.Generator``: every kernel ``N(0, 1/fan_in)``,
+    biases 0, BatchNorm scales 1 except the last of each ResNet block, 0
+    (the JAX model's zero init), running means 0 and variances 1."""
+    from horovod_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(seed)
+    last = set()
+    if isinstance(model, resnet.ResNet):
+        last = {f"blocks.{i}.norms.{len(b.norms) - 1}.scale"
+                for i, b in enumerate(model.blocks)}
+    shapes = {n: t.shape for n, t in model.state_dict().items()}
+    sd = {}
+    for name, _, _, kind in _flax_layout(model):
+        shape = shapes[name]
+        if kind in ("conv", "dense"):
+            fan_in = int(np.prod(shape[1:]))
+            sd[name] = torch.randn(shape, generator=gen) / fan_in ** 0.5
+        elif name.endswith(".scale"):
+            sd[name] = (torch.zeros if name in last else torch.ones)(shape)
+        elif name.endswith(".var"):
+            sd[name] = torch.ones(shape)
+        else:
+            sd[name] = torch.zeros(shape)
+    return to_flax(sd, model)
+
+
+def init_state(model, seed: int = 0) -> dict:
+    """Seeded random ``state_dict`` for a port ResNet or MNIST model (CPU
+    tensors), by way of :func:`init_variables`' flax layout."""
+    return from_flax(init_variables(model, seed), model)

@@ -18,12 +18,24 @@ JAX package's public one, over ``[B, S, H, D]`` tensors:
   bf16 kernels: below), and applies ``scale`` to dq and ``ln 2`` to dk
   once, at the end.
 
-A CUDA tensor launches the kernels (float32 or bfloat16, ``head_dim`` 64 or
-128) or raises; a CPU tensor takes the plain versions.  On the card the
-route follows the dtype: float32 runs every product on the CUDA cores in
-f32; bfloat16 runs all three kernels on the tensor cores, whose operands
-are bf16, so p is carried there as follows (the plain versions keep f32 p,
-the JAX contract; ``l`` sums the f32 p in both):
+A CUDA tensor launches the kernels (float32 or bfloat16, any layout,
+``head_dim`` up to 256) or raises; a CPU tensor takes the plain versions.
+The wrappers hand the kernels contiguous ``[B, S, H, D]`` copies of
+strided inputs, and zero-pad the head dim up to the next of 64, 128 and
+256, the head dims the kernels are built for; the outputs and gradients
+are sliced back.  That is exact: zero columns add nothing to ``q·kᵀ``,
+and the padded columns of the output, dq, dk and dv are zero.  The scale
+is the unpadded head dim's, passed from the host.  ``head_dim`` above 256
+raises.  On the card the route follows the dtype and the (padded) head
+dim:
+
+* float32, at every head dim, and bfloat16 at 256 run every product on
+  the CUDA cores in f32, with p in f32 as in the plain versions (the
+  f32 tiles of 256 wide rows fill a block's shared memory, so those
+  kernels take 32-row q tiles for dq and 32-key tiles for dk/dv);
+* bfloat16 at 64 and 128 runs all three kernels on the tensor cores,
+  whose operands are bf16, so p is carried there as follows (the plain
+  versions keep f32 p, the JAX contract; ``l`` sums the f32 p in both):
 
 * forward ``p·V``: p enters as two bf16 terms, ``bf16(p)`` and
   ``bf16(p - bf16(p))`` (~16 significant bits), so the output agrees with
@@ -49,6 +61,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from horovod_tpu_torch.ops import _build
 
@@ -67,7 +80,8 @@ DKV_KERNEL = _build.register(
     "flash_bwd_dkv", "hvd_flash_bwd_dkv",
     [_P] * 8 + [_I] * 9 + [_F, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# The head dims the kernels are built for; others are zero-padded up.
+_HEAD_DIMS = (64, 128, 256)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -156,6 +170,27 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta,
     return dq, dk, dv
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the least of
+    :data:`_HEAD_DIMS` that is at least ``d``."""
+    for kd in _HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"flash_attention: the CUDA kernels take head_dim up "
+                     f"to {_HEAD_DIMS[-1]}, got {d}")
+
+
+def _kernel_layout(d_kernel, *ts):
+    """Each of ``ts`` contiguous, its last axis zero-padded to
+    ``d_kernel``."""
+    return [t.contiguous() if t.shape[-1] == d_kernel
+            else F.pad(t, (0, d_kernel - t.shape[-1])) for t in ts]
+
+
+def _unpad(t, d):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _check_cuda_inputs(q, k, v):
     if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"flash_attention: CUDA kernel takes float32 or "
@@ -166,13 +201,9 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"flash_attention: expected q [B,Sq,H,D] and k, v "
                          f"[B,Sk,H,D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: CUDA kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {q.shape[-1]}")
+    kernel_head_dim(q.shape[-1])
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError("flash_attention: batch * heads must be <= 65535")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
     if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
 
@@ -195,28 +226,32 @@ def _check_cuda_grad_inputs(q, dout, lse, delta):
 def _flash_cuda(q, k, v, causal, q_offset, k_offset):
     _check_cuda_inputs(q, k, v)
     b, s_q, h, d = q.shape
+    d_kernel = kernel_head_dim(d)
+    q, k, v = _kernel_layout(d_kernel, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, s_q, h), dtype=torch.float32, device=q.device)
-    if s_q == 0:
-        return out, lse
-    with torch.cuda.device(q.device):
-        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               lse.data_ptr(), _DTYPES[q.dtype], b, h, s_q, k.shape[1], d,
-               int(bool(causal)), int(q_offset), int(k_offset),
-               d ** -0.5 * LOG2E, _build.stream_of(q))
-    return out, lse
+    if s_q:
+        with torch.cuda.device(q.device):
+            KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr(), _DTYPES[q.dtype], b, h, s_q, k.shape[1],
+                   d_kernel, int(bool(causal)), int(q_offset), int(k_offset),
+                   d ** -0.5 * LOG2E, _build.stream_of(q))
+    return _unpad(out, d), lse
 
 
 def _bwd_cuda_args(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
-    """Checked inputs of a backward kernel: ``dout`` in q's dtype, and the
-    shared arguments after the pointers."""
+    """Checked inputs of a backward kernel: q, k, v and ``dout`` (in q's
+    dtype) in the kernels' layout, the shared arguments after the pointers,
+    and the unpadded head dim."""
     _check_cuda_inputs(q, k, v)
-    dout = dout.to(q.dtype).contiguous()
+    dout = dout.to(q.dtype)
     _check_cuda_grad_inputs(q, dout, lse, delta)
     b, s_q, h, d = q.shape
-    return dout, (_DTYPES[q.dtype], b, h, s_q, k.shape[1], d,
-                  int(bool(causal)), int(q_offset), int(k_offset),
-                  d ** -0.5 * LOG2E)
+    d_kernel = kernel_head_dim(d)
+    return _kernel_layout(d_kernel, q, k, v, dout), (
+        _DTYPES[q.dtype], b, h, s_q, k.shape[1], d_kernel,
+        int(bool(causal)), int(q_offset), int(k_offset),
+        d ** -0.5 * LOG2E), d
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
@@ -226,16 +261,15 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
     if not _on_cuda(q):
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal,
                                       q_offset, k_offset)
-    dout, args = _bwd_cuda_args(q, k, v, dout, lse, delta, causal, q_offset,
-                                k_offset)
+    (q, k, v, dout), args, d = _bwd_cuda_args(q, k, v, dout, lse, delta,
+                                              causal, q_offset, k_offset)
     dq = torch.empty_like(q)
     if q.shape[1]:
         with torch.cuda.device(q.device):
             DQ_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dq.data_ptr(), *args, q.shape[-1] ** -0.5,
-                      _build.stream_of(q))
-    return dq
+                      dq.data_ptr(), *args, d ** -0.5, _build.stream_of(q))
+    return _unpad(dq, d)
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
@@ -245,8 +279,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     if not _on_cuda(q):
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,
                                        q_offset, k_offset)
-    dout, args = _bwd_cuda_args(q, k, v, dout, lse, delta, causal, q_offset,
-                                k_offset)
+    (q, k, v, dout), args, d = _bwd_cuda_args(q, k, v, dout, lse, delta,
+                                              causal, q_offset, k_offset)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.shape[1]:
         with torch.cuda.device(q.device):
@@ -254,7 +288,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                        dk.data_ptr(), dv.data_ptr(), *args,
                        _build.stream_of(q))
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = True, q_offset=0,

@@ -71,6 +71,31 @@ def plan_buckets(shapes_dtypes: Sequence[tuple[tuple, torch.dtype]],
     return buckets
 
 
+def pack(tensors: Sequence[torch.Tensor],
+         threshold_bytes: int | None = None) -> list[tuple]:
+    """``(bucket, flat buffer)`` for each bucket of :func:`plan_buckets`'
+    plan: the bucket's tensors flattened into one new zero-padded buffer."""
+    packed = []
+    for b in plan_buckets([(t.shape, t.dtype) for t in tensors],
+                          threshold_bytes):
+        flat = torch.zeros(b.padded_elems, dtype=b.dtype,
+                           device=tensors[b.slots[0].index].device)
+        for s in b.slots:
+            flat[s.offset:s.offset + s.size] = tensors[s.index].reshape(-1)
+        packed.append((b, flat))
+    return packed
+
+
+def unpack(packed, count: int) -> list[torch.Tensor]:
+    """The ``count`` tensors of :func:`pack`'s buckets, as views of their
+    (reduced) flat buffers."""
+    out: list = [None] * count
+    for b, flat in packed:
+        for s in b.slots:
+            out[s.index] = flat[s.offset:s.offset + s.size].view(s.shape)
+    return out
+
+
 def fused_apply(tensors: Sequence[torch.Tensor],
                 collective: Callable[[torch.Tensor], torch.Tensor],
                 threshold_bytes: int | None = None) -> list[torch.Tensor]:
@@ -78,14 +103,6 @@ def fused_apply(tensors: Sequence[torch.Tensor],
     bucket, and unpack.  ``collective`` maps a 1-D buffer to a 1-D buffer of
     the same length (e.g. an allreduce)."""
     tensors = list(tensors)
-    out: list = [None] * len(tensors)
-    for b in plan_buckets([(t.shape, t.dtype) for t in tensors],
-                          threshold_bytes):
-        flat = torch.zeros(b.padded_elems, dtype=b.dtype,
-                           device=tensors[b.slots[0].index].device)
-        for s in b.slots:
-            flat[s.offset:s.offset + s.size] = tensors[s.index].reshape(-1)
-        reduced = collective(flat)
-        for s in b.slots:
-            out[s.index] = reduced[s.offset:s.offset + s.size].view(s.shape)
-    return out
+    return unpack([(b, collective(flat))
+                   for b, flat in pack(tensors, threshold_bytes)],
+                  len(tensors))

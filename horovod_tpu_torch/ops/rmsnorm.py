@@ -10,10 +10,12 @@ scale's.  A CUDA tensor launches the kernels (float32 or bfloat16 ``x``;
 the scale goes to them as float32) or raises; a CPU tensor takes
 :func:`rms_norm_reference` and :func:`rms_norm_backward_reference`.
 
-Each call is one launch.  Both kernels hold rows of up to 2 KB in
-registers, 16-byte vectors a lane (the bf16 width 768 of every path); other
-widths and unaligned tensors take each kernel's loop form, chosen by shape
-in the kernel's entry point.  The forward's rows do not depend on N: a row
+Each call is one launch, at any width.  Both kernels hold rows of up to
+2 KB in registers, 16-byte vectors a lane (the bf16 width 768 of every
+path); other widths and unaligned tensors take each kernel's loop form,
+chosen by shape in the kernel's entry point.  The backward's rows past
+:data:`WIDE_BWD_WIDTH` take its wide form, a block per row with one row of
+dscale partials (in shared memory, or past 57856 in the partials scratch).  The forward's rows do not depend on N: a row
 has the same bits alone, in a decode batch or in a training step
 (``csrc/rmsnorm_fwd.cu``).  The backward sums its per-block dscale partials
 itself, in block order, so the wrapper sums nothing.  The last block to
@@ -39,12 +41,13 @@ DEFAULT_EPS = 1e-6
 # The backward kernel's grid cap: each block writes one [E] row of dscale
 # partials, so this bounds the scratch the kernel sums.
 MAX_BWD_BLOCKS = 256
+# Rows in flight per block of the backward: a row a warp, and a row a block
+# in the wide form that rows past this width take (csrc/rmsnorm_bwd.cu,
+# kMaxWarpRowsE), so the grid spreads the same rows over more blocks there.
+WIDE_BWD_WIDTH = 7168
 # Ticket counters of the backward's cross-block sum: it needs
 # 1 + ceil(blocks / 16) <= 17 of them, and checks the count it is given.
 BWD_COUNTERS = 32
-# The backward kernel keeps 8 rows of f32 dscale partials in shared memory
-# (8 * E * 4 bytes of the 227 KB a block may use).
-MAX_BWD_WIDTH = 7168
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = _build.register(
@@ -124,14 +127,13 @@ def _rms_norm_bwd_cuda(x, scale, dy, eps):
                          f"{tuple(x.shape)} on {x.device}, got {dy.dtype} "
                          f"{tuple(dy.shape)} on {dy.device}")
     e = x.shape[-1]
-    if e > MAX_BWD_WIDTH:
-        raise ValueError(f"rms_norm backward: CUDA kernel takes a last axis "
-                         f"of at most {MAX_BWD_WIDTH}, got {e}")
     n = x.numel() // e if e else 0
     dx = torch.empty_like(x)
     if n == 0:
         return dx, torch.zeros_like(scale)
-    blocks = min(-(-n // 8), MAX_BWD_BLOCKS)   # set from N alone
+    rows_per_block = 1 if e > WIDE_BWD_WIDTH else 8
+    # Set from N and E alone, so the order of every sum is too.
+    blocks = min(-(-n // rows_per_block), MAX_BWD_BLOCKS)
     part = torch.empty((blocks, e), dtype=torch.float32, device=x.device)
     dscale = torch.empty(e, dtype=torch.float32, device=x.device)
     scale32 = scale.to(torch.float32).contiguous()

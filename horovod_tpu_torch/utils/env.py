@@ -1,10 +1,13 @@
-"""Environment knobs the port reads: tensor fusion and ``HVD_TPU_SERVE_*``.
+"""Environment knobs the port reads: tensor fusion, gradient overlap, the
+device headroom and ``HVD_TPU_SERVE_*``.
 
-Own copy of the fusion and serving readers of ``horovod_tpu/utils/env.py``,
-with the same names, defaults and parsing: each knob is looked up as
-``HOROVOD_<name>`` first, then ``HVD_TPU_<name>``.  For the serving knobs,
-unset gives the default, and a malformed value gives the default with a
-warning — a bad knob never takes a serving replica down.
+Own copy of the fusion, overlap, headroom and serving readers of
+``horovod_tpu/utils/env.py``, with the same names, defaults and parsing:
+each knob is looked up as ``HOROVOD_<name>`` first, then
+``HVD_TPU_<name>``.  For the serving knobs, unset gives the default, and a
+malformed value gives the default with a warning — a bad knob never takes
+a serving replica down.  The overlap and headroom knobs degrade the same
+way (:func:`overlap_buckets`, :func:`device_headroom_mb`).
 """
 
 from __future__ import annotations
@@ -30,6 +33,69 @@ def fusion_threshold_bytes() -> int:
     (default 64 MiB)."""
     raw = _get("FUSION_THRESHOLD")
     return int(raw) if raw else DEFAULT_FUSION_THRESHOLD
+
+
+DEFAULT_OVERLAP_BUCKETS = 4
+
+
+def overlap_buckets() -> int:
+    """Number of gradient buckets whose allreduces overlap backward
+    (``HOROVOD_OVERLAP_BUCKETS`` / ``HVD_TPU_OVERLAP_BUCKETS``; 0
+    disables).  A malformed value (non-integer, or negative) falls back to
+    the default with a warning instead of crashing the job at its first
+    step."""
+    raw = _get("OVERLAP_BUCKETS")
+    if not raw:
+        return DEFAULT_OVERLAP_BUCKETS
+    try:
+        value = int(raw)
+        if value < 0:
+            raise ValueError("negative bucket count")
+    except ValueError:
+        name = ("HOROVOD_OVERLAP_BUCKETS"
+                if "HOROVOD_OVERLAP_BUCKETS" in os.environ
+                else "HVD_TPU_OVERLAP_BUCKETS")
+        warnings.warn(
+            f"{name}={raw!r} is not a non-negative integer; falling back "
+            f"to the default ({DEFAULT_OVERLAP_BUCKETS})",
+            RuntimeWarning, stacklevel=2)
+        return DEFAULT_OVERLAP_BUCKETS
+    return value
+
+
+def overlap_buckets_override() -> int | None:
+    """The explicitly requested bucket count, or None when the environment
+    carries no override: unset lets the adaptive planner choose
+    (``ops/schedule_plan.py``), while any set value, 0 included, pins the
+    static planner.  A set but malformed value degrades to
+    :data:`DEFAULT_OVERLAP_BUCKETS` with :func:`overlap_buckets`'s
+    warning."""
+    raw = _get("OVERLAP_BUCKETS")
+    if not raw:
+        return None
+    return overlap_buckets()
+
+
+def device_headroom_mb() -> float | None:
+    """``HVD_TPU_DEVICE_HEADROOM_MB`` — device-memory headroom (MB) the
+    schedule planner budgets the overlap's extra live bytes against, in
+    place of the ``torch.cuda.mem_get_info`` probe.  Unset or malformed
+    (with a warning): None (probe, or treat headroom as unknown); negative
+    values clamp to 0 (no headroom)."""
+    raw = _get("DEVICE_HEADROOM_MB")
+    if raw in (None, ""):
+        return None
+    try:
+        value = float(raw)
+    except ValueError:
+        name = ("HOROVOD_DEVICE_HEADROOM_MB"
+                if "HOROVOD_DEVICE_HEADROOM_MB" in os.environ
+                else "HVD_TPU_DEVICE_HEADROOM_MB")
+        warnings.warn(
+            f"{name}={raw!r} is not a number; ignoring the override "
+            f"(headroom stays unknown)", RuntimeWarning, stacklevel=2)
+        return None
+    return max(value, 0.0)
 
 
 def _serve_number(name: str, default, cast, floor=None):

@@ -26,7 +26,12 @@ KINDS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                             "flash_bwd_dkv_wgmma_kernel")),
          ("rmsnorm_fwd", ("rmsnorm_fwd_kernel", "rmsnorm_fwd_regs_kernel")),
-         ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_regs_kernel")),
+         ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_regs_kernel",
+                          "rmsnorm_bwd_wide_kernel")),
+         # Batch norm, and cuDNN's convolutions (forward, data and weight
+         # gradients), before the matrix products whose names they share.
+         ("batchnorm", ("batch_norm", "BatchNorm", "bn_fw", "bn_bw")),
+         ("conv", ("fprop", "dgrad", "wgrad", "convolve", "conv2d")),
          ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_TRIES = 3

@@ -31,7 +31,14 @@ FLASH_CASES = [   # (S_q, S_k, causal, q_offset, k_offset, head_dim)
         # No keys at all; and 128-row q tiles (S_q large enough that they
         # fill the card at B*H = 6) with a ragged last tile, whose second
         # warpgroup is partly past S_q, over fewer keys than one K tile.
-        (130, 0, True, 0, 0, d), (2900, 40, True, 0, 0, d))]
+        (130, 0, True, 0, 0, d), (2900, 40, True, 0, 0, d))] + [
+    # Head dims the wrappers zero-pad (32 -> 64, 96 -> 128, 160 -> 256)
+    # and 256, which runs on the CUDA cores in both dtypes with 32-row dq
+    # and 32-key dk/dv tiles: causal, with the query block past its keys,
+    # non-causal over more keys than one tile, and a ragged q tile.
+    case for d in (32, 96, 160, 256) for case in (
+        (200, 200, True, 0, 0, d), (100, 300, True, 200, 0, d),
+        (130, 70, False, 0, 0, d), (37, 300, True, 263, 0, d))]
 
 
 @pytest.fixture()
@@ -148,6 +155,32 @@ def test_flash_autograd_runs_the_kernels(cuda):
         _close(g, w, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_flash_kernels_take_strided_views(cuda, dtype, d):
+    # q, k, v and dO as transposed views of [B, H, S, D] tensors, as ring
+    # attention's chunks come: the wrappers copy them into the kernels'
+    # layout, and the results match the plain versions on the same views.
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, dout = (torch.randn(2, 3, 150, d, generator=g, device=cuda,
+                                 dtype=dtype).transpose(1, 2)
+                     for _ in range(4))
+    assert not q.is_contiguous()
+    out, lse = tfa.flash_attention_with_lse(q, k, v)
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v)
+    delta = (dout.float() * out.float()).sum(-1)
+    got = tfa.flash_attention_backward(q, k, v, dout, lse, delta)
+    want = tfa.flash_attention_backward_reference(q, k, v, dout, lse, delta)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    for gr, w in zip(got, want):
+        assert gr.shape == q.shape and gr.dtype == dtype
+        _close(gr, w, dtype)
+
+
 def _rms_inputs(cuda, dtype, n, e, seed=1, unaligned=False):
     """x [n, e] and an f32 scale; ``unaligned`` puts x one element past a
     16-byte boundary (a contiguous view), which the register form refuses."""
@@ -217,11 +250,16 @@ def test_rmsnorm_forward_rows_do_not_depend_on_n(cuda, dtype, e):
 
 # Widths each form of the backward kernel takes: rows of at most 2 KB whose
 # width is a multiple of 8 in registers (bf16 768, 384, 1024; f32 384), the
-# rest in the loop form (f32 768, 1024; 100 and 4096 in both dtypes).  N
-# above 8 * MAX_BWD_BLOCKS rows makes each warp take several rows; N up to
-# 128 runs one group of blocks, whose sum is dscale itself.
+# loop form up to WIDE_BWD_WIDTH (f32 768, 1024; 100, 4096 and 7168 in both
+# dtypes), the wide form past it, a block a row, with its row of dscale
+# partials in shared memory (8192, 12288, 57856) or, past 57856, in device
+# memory (57857, 65536).  N above 8 * MAX_BWD_BLOCKS rows makes each warp
+# take several rows, and above MAX_BWD_BLOCKS each wide block; N up to 128
+# runs one group of blocks, whose sum is dscale itself.
 RMS_BWD_CASES = [(1, 768), (1000, 768), (8192, 768), (37, 384),
-                 (3000, 1024), (300, 100), (2500, 4096)]
+                 (3000, 1024), (300, 100), (2500, 4096), (500, 7168),
+                 (1, 8192), (1000, 8192), (300, 12288), (37, 57856),
+                 (37, 57857), (300, 65536)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -267,7 +305,9 @@ def test_rmsnorm_backward_kernel_is_deterministic(cuda, dtype, n, e):
 
 @pytest.mark.parametrize("dtype,e,form", [
     (torch.bfloat16, 768, "regs"), (torch.bfloat16, 100, "loop"),
-    (torch.float32, 384, "regs"), (torch.float32, 768, "loop")])
+    (torch.float32, 384, "regs"), (torch.float32, 768, "loop"),
+    (torch.bfloat16, 7168, "loop"), (torch.bfloat16, 8192, "wide"),
+    (torch.float32, 65536, "wide")])
 def test_rmsnorm_backward_is_one_launch_of_its_form(cuda, dtype, e, form):
     # One call is one kernel on the card (the cross-block dscale sum
     # included), and the width picks the form.
@@ -275,4 +315,31 @@ def test_rmsnorm_backward_is_one_launch_of_its_form(cuda, dtype, e, form):
     names = trace.kernels_in_one_call(
         lambda: trn.rms_norm_backward(x, scale, dy))
     assert len(names) == 1, names
+    assert trace.kind_of(names[0]) == "rmsnorm_bwd", names
     assert ("rmsnorm_bwd_regs_kernel" in names[0]) == (form == "regs"), names
+    assert ("rmsnorm_bwd_wide_kernel" in names[0]) == (form == "wide"), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e", [8192, 12288, 65536])
+def test_rmsnorm_backward_wide_rows_do_not_depend_on_n(cuda, dtype, e):
+    # The wide form's rows: a row's dx has the same bits alone, among 8
+    # and among 1024 rows, whatever the grid; and dscale is deterministic.
+    x, scale, dy = _rms_bwd_inputs(cuda, dtype, 1024, e, seed=6)
+    full, full_ds = trn.rms_norm_backward(x, scale, dy)
+    again, again_ds = trn.rms_norm_backward(x, scale, dy)
+    want, want_ds = trn.rms_norm_backward_reference(x, scale, dy)
+    for i in (0, 7, 8, 517, 1023):
+        alone = trn.rms_norm_backward(x[i:i + 1], scale, dy[i:i + 1])[0]
+        first = min(i - i % 8, 1016)
+        batch = trn.rms_norm_backward(x[first:first + 8], scale,
+                                      dy[first:first + 8])[0]
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[i])
+        assert torch.equal(batch[i - first], full[i])
+    assert torch.equal(full, again) and torch.equal(full_ds, again_ds)
+    tol = 1e-5 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(full.float(), want.float(), atol=1e-4,
+                               rtol=tol)
+    torch.testing.assert_close(full_ds, want_ds, atol=1e-4 * 1024 ** 0.5,
+                               rtol=1e-5)

@@ -126,8 +126,10 @@ def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
     assert [f.launches for f in fakes.values()] == [1, 1, 1]
     with pytest.raises(RuntimeError, match="forward-only"):
         tfa.flash_attention_with_lse(q, k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(*(torch.randn(1, 8, 2, 16, requires_grad=True)
+    # Head dims past 256 have no kernel; smaller ones are padded
+    # (test_cuda_flash_wrapper_pads_the_head_dim).
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        tfa.flash_attention(*(torch.randn(1, 8, 2, 264, requires_grad=True)
                               for _ in range(3)))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(*(torch.randn(1, 8, 2, 64).half()
@@ -141,6 +143,40 @@ def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.flash_attention(q.detach(), k, v)
     assert [f.launches for f in fakes.values()] == [1, 1, 1]
+
+
+def test_cuda_flash_wrapper_pads_the_head_dim(monkeypatch):
+    # A head dim other than 64, 128 and 256 goes to the kernels zero-padded
+    # to the next of them, from contiguous copies, with the scale of its
+    # own head dim; the results come back at that head dim.
+    monkeypatch.setattr(tfa, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tfa._build, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    fakes = {name: _FakeKernel() for name in ("KERNEL", "DQ_KERNEL",
+                                              "DKV_KERNEL")}
+    for name, fake in fakes.items():
+        monkeypatch.setattr(tfa, name, fake)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for d, d_kernel in ((8, 64), (32, 64), (64, 64), (96, 128), (128, 128),
+                        (160, 256), (256, 256)):
+        assert tfa.kernel_head_dim(d) == d_kernel
+        # q a transposed view, as ring attention's chunks are: not
+        # contiguous.
+        q = torch.randn(1, 2, 8, d).transpose(1, 2).requires_grad_()
+        k, v = torch.randn(1, 8, 2, d), torch.randn(1, 8, 2, d)
+        out = tfa.flash_attention(q, k, v)
+        out.sum().backward()
+        assert out.shape == q.shape and out.is_contiguous()
+        assert q.grad.shape == q.shape
+        fwd, dq, dkv = (fakes[n].calls[-1] for n in ("KERNEL", "DQ_KERNEL",
+                                                     "DKV_KERNEL"))
+        assert fwd[10] == dq[12] == dkv[13] == d_kernel       # D
+        assert fwd[-2] == dq[-3] == dkv[-2] == pytest.approx(
+            d ** -0.5 * tfa.LOG2E)                           # qscale
+        assert dq[-2] == pytest.approx(d ** -0.5)            # scale
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        tfa.kernel_head_dim(257)
 
 
 def _write_dscale(x, dy, scale, dx, part, dscale, counters, n_counters,
@@ -178,11 +214,15 @@ def test_cuda_rmsnorm_wrapper_trains_through_the_backward_kernel(monkeypatch):
     assert len(trn._WORKSPACES) == 1
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         trn.rms_norm(x.detach().half(), scale.detach())
-    with pytest.raises(ValueError, match="at most"):
-        trn.rms_norm_backward(torch.randn(2, trn.MAX_BWD_WIDTH + 1),
-                              torch.ones(trn.MAX_BWD_WIDTH + 1),
-                              torch.randn(2, trn.MAX_BWD_WIDTH + 1))
     assert (fwd.launches, bwd.launches) == (1, 2)
+    # Any width launches: rows past WIDE_BWD_WIDTH take the wide form, a
+    # block a row, so the same N spreads over more blocks.
+    for e, blocks in ((trn.WIDE_BWD_WIDTH, 3), (trn.WIDE_BWD_WIDTH + 1, 20),
+                      (65536, 20)):
+        trn.rms_norm_backward(torch.randn(20, e), torch.ones(e),
+                              torch.randn(20, e))
+        assert bwd.calls[-1][-2] == blocks
+    assert bwd.launches == 5
 
 
 def test_process_identity_before_init_raises(monkeypatch):

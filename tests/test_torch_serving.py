@@ -374,10 +374,16 @@ def test_breakdown_counts_device_time_once_and_by_kind(monkeypatch):
         "3>(", "void rmsnorm_bwd_kernel<float>",
         "void (anonymous namespace)::rmsnorm_bwd_regs_kernel<__nv_bfloat16, "
         "3>(", "nvjet_tst_64x8_64x16", "sm90_xmma_gemm_bf16bf16",
-        "softmax_warp_forward")] == \
+        "softmax_warp_forward",
+        "void (anonymous namespace)::rmsnorm_bwd_wide_kernel<float, true>(",
+        "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+        "sm90_xmma_wgrad_implicit_gemm_indexed_bf16bf16",
+        "void at::native::batch_norm_collect_statistics_channels_last_"
+        "kernel<")] == \
         ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd",
          "flash_bwd_dkv", "flash_bwd_dq", "rmsnorm_fwd", "rmsnorm_fwd",
-         "rmsnorm_bwd", "rmsnorm_bwd", "matmul", "matmul", "other"]
+         "rmsnorm_bwd", "rmsnorm_bwd", "matmul", "matmul", "other",
+         "rmsnorm_bwd", "conv", "conv", "batchnorm"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         breakdown.main([])
