@@ -18,8 +18,11 @@ line each:
                  ``F.scaled_dot_product_attention`` (a yardstick only), the
                  card's bound for the same work and its share of the
                  kernel's time; and at ``[1, 1024, 6, D]`` for D = 96
-                 (zero-padded to 128) and 256 (the CUDA-core route), and
-                 with q, k, v (and dO) as strided views;
+                 (zero-padded to 128) and 256 (the CUDA-core route), with
+                 q, k, v (and dO) as strided views, at ``[1, 1024, 2, D]``
+                 for D = 320 and 512 (the wide route) and at
+                 ``[16385, 64, 4, 64]`` (B·H = 65540), those in bf16 and
+                 f32;
 4. flash_bwd   — the dq and dk/dv kernels against their plain versions on
                  the same ``(q, k, v, dO, lse, Δ)``, same fields (the
                  yardstick is the backward of the library call), each
@@ -51,6 +54,17 @@ line each:
                  through the plain versions, step time, tokens/s, MFU, peak
                  memory, device time by kind of kernel and kernels per
                  step, and the overlap plan (the width-1 bypass);
+   train_mixed — the same step with ``--bf16-params``:
+                 ``DistributedOptimizer(master_weights(AdamW))`` over
+                 bf16-resident parameters, the same checks and numbers,
+                 and every resident parameter against bf16(its master);
+   train_remat — the step with ``--remat``: one step's gradients against
+                 the plain step's (bit-equal, or within the train bounds),
+                 launches 24/12/12/49/25 a step, peak memory below
+                 ``train``'s;
+   train_accumulate — ``--accumulate 4`` at B = 8: loss and gradients
+                 against the full-batch step within the train bounds, and
+                 four times a step's launches;
 9. resnet      — the ResNet-50 step of ``python -m
                  horovod_tpu_torch.train_resnet`` at full size (128 images
                  of 224×224×3 on the card, bf16 over f32 parameters,
@@ -100,23 +114,33 @@ RMS_HBM_MIN_BYTES = 2**20
 SEED = 0
 # (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
 # prefill buckets, S=1000 (masked edge tiles), a longer and a non-causal
-# row, a query block past its keys, and the training step's shape.
+# row, a query block past its keys, the training step's shape, and one
+# microbatch of it under `--accumulate 4` (B = 2).
 FLASH_SHAPES = (
     (1, 128, 128, True, 0), (1, 256, 256, True, 0), (1, 512, 512, True, 0),
     (1, 1000, 1000, True, 0), (1, 1024, 1024, True, 0),
     (1, 2048, 2048, True, 0), (1, 1024, 1024, False, 0),
-    (1, 128, 1024, True, 896), (8, 1024, 1024, True, 0))
+    (1, 128, 1024, True, 896), (8, 1024, 1024, True, 0),
+    (2, 1024, 1024, True, 0))
 FLASH_BWD_SHAPES = (
-    (8, 1024, 1024, True, 0), (1, 128, 128, True, 0),
+    (8, 1024, 1024, True, 0), (2, 1024, 1024, True, 0),
+    (1, 128, 128, True, 0),
     (1, 1000, 1000, True, 0), (1, 2048, 2048, True, 0),
     (1, 1024, 1024, False, 0), (1, 128, 1024, True, 896))
 FLASH_MAIN = (8, 1024, 1024, True, 0)   # one training step's attention
 # Rows past the training shapes, each (B, S_q, S_k, causal, q_offset, D,
-# strided): head dims the wrappers pad (96 -> 128) or route to the CUDA
-# cores (256), and q, k, v, dO as transposed views of [B, H, S, D].
-FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False),
-              (1, 1024, 1024, True, 0, 256, False),
-              (1, 1024, 1024, True, 0, 128, True))
+# strided, H, dtype): head dims the wrappers pad (96 -> 128) or route to the
+# CUDA cores (256), q, k, v, dO as transposed views of [B, H, S, D]; head
+# dims past 256 (the wide route, each block a 64-column slice of the
+# output), in bf16 and f32; and B*H = 65540, past the 65535 a grid's y
+# axis takes, in bf16 (tensor cores) and f32 (CUDA cores).
+FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False, 6, torch.bfloat16),
+              (1, 1024, 1024, True, 0, 256, False, 6, torch.bfloat16),
+              (1, 1024, 1024, True, 0, 128, True, 6, torch.bfloat16)) + tuple(
+    (1, 1024, 1024, True, 0, d, False, 2, dt) for d in (320, 512)
+    for dt in (torch.bfloat16, torch.float32)) + tuple(
+    (16385, 64, 64, True, 0, 64, False, 4, dt)
+    for dt in (torch.bfloat16, torch.float32))
 RMS_ROWS = (1, 8, 1000, 2048, 8192)     # [N, 768] bf16
 # (dtype, N) of the RMSNorm forward's checks: the bf16 rows of every path
 # (register form) and the f32 training step's rows (3 KB: the loop form).
@@ -137,6 +161,10 @@ RESNET_WARMUP, RESNET_STEPS = 3, 8
 # which on rows that see only a few keys exceeds FLASH_ATOL.
 BF16_RTOL = 1.6e-2
 FLASH_ATOL, RMS_ATOL, LSE_ATOL = 1e-3, 1e-5, 1e-4
+# f32 flash rows (CUDA cores): kernel and plain version both keep every
+# product in f32 and differ only in summation order; the card tests' bounds
+# (forward, and each gradient, absolute and relative).
+F32_FLASH_ATOL, F32_GRAD_TOL = 1e-5, 1e-4
 # f32 RMSNorm: kernel and plain version sum x^2 in other orders, within a
 # few f32 ulps of each other.
 RMS_F32_RTOL = 1e-5
@@ -212,6 +240,13 @@ def time_cold_ms(fn, inputs) -> float:
     return time_ms(lambda: outs.append(fn(next(turn))))
 
 
+def _peak_flops(dtype) -> float:
+    """The card's peak for the operations' type: bf16 on the tensor cores,
+    f32 on the CUDA cores."""
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
+        PEAK_F32_CUDA_CORE_FLOPS
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -285,70 +320,96 @@ def _sdpa(causal, q_off, visible):
         q, k, v, attn_mask=mask, is_causal=bool(causal and not q_off))
 
 
-def _bshd(gen, b, s, h, d, strided):
-    """A bf16 ``[b, s, h, d]`` tensor on the card; ``strided``: a
-    transposed view of a ``[b, h, s, d]`` one."""
+def _bshd(gen, b, s, h, d, strided, dtype=torch.bfloat16):
+    """A ``[b, s, h, d]`` tensor on the card; ``strided``: a transposed
+    view of a ``[b, h, s, d]`` one."""
     if strided:
         return torch.randn(b, h, s, d, generator=gen, device="cuda",
-                           dtype=torch.bfloat16).transpose(1, 2)
+                           dtype=dtype).transpose(1, 2)
     return torch.randn(b, s, h, d, generator=gen, device="cuda",
-                       dtype=torch.bfloat16)
+                       dtype=dtype)
 
 
 def _is_main(row) -> bool:
-    return tuple(row[:5]) == FLASH_MAIN and tuple(row[5:]) == (128, False)
+    return tuple(row[:5]) == FLASH_MAIN and tuple(row[5:7]) == (128, False)
 
 
-def _flash_route(d: int) -> str:
-    """The route of a bf16 call at head dim ``d`` (see
+def _flash_rows(shapes):
+    """The training and serving rows (``[B, S, 6, 128]`` bf16), then
+    :data:`FLASH_MORE`."""
+    return tuple(r + (128, False, 6, torch.bfloat16)
+                 for r in shapes) + FLASH_MORE
+
+
+def _flash_route(d: int, dtype=torch.bfloat16) -> str:
+    """The route of a call at head dim ``d`` (see
     ``ops/flash_attention.py``)."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     dk = fa.kernel_head_dim(d)
-    route = "tensor cores" if dk in (64, 128) else "CUDA cores"
+    route = "tensor cores" if dk in (64, 128) and dtype == torch.bfloat16 \
+        else "CUDA cores" + (", a 64-column slice a block" if dk > 256
+                             else "")
     return route + (f", zero-padded to D={dk}" if dk != d else "")
+
+
+def _flash_tolerances(dtype):
+    """The forward's (atol, rtol) and a gradient's (atol as a function of
+    the plain gradient, rtol): f32 kernels and plain versions differ in
+    summation order only; bf16 bounds scale with the gradient (see
+    GRAD_ATOL)."""
+    if dtype == torch.float32:
+        return ((F32_FLASH_ATOL, F32_FLASH_ATOL),
+                (lambda want: F32_GRAD_TOL, F32_GRAD_TOL))
+    return ((FLASH_ATOL, BF16_RTOL),
+            (lambda want: GRAD_ATOL * want.abs().max().item(), BF16_RTOL))
 
 
 def phase_flash() -> dict:
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    h = 6
     worst, main = 0.0, None
-    for row_key in tuple(r + (128, False) for r in FLASH_SHAPES) + FLASH_MORE:
-        b, s_q, s_k, causal, q_off, d, strided = row_key
-        q = _bshd(gen, b, s_q, h, d, strided)
-        k, v = (_bshd(gen, b, s_k, h, d, strided) for _ in range(2))
+    for row_key in _flash_rows(FLASH_SHAPES):
+        b, s_q, s_k, causal, q_off, d, strided, h, dtype = row_key
+        q = _bshd(gen, b, s_q, h, d, strided, dtype)
+        k, v = (_bshd(gen, b, s_k, h, d, strided, dtype) for _ in range(2))
         out, lse = fa.flash_attention_with_lse(q, k, v, causal, q_off, 0)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal,
                                                         q_off, 0)
         torch.cuda.synchronize()
-        tag = f"flash B={b} S_q={s_q} S_k={s_k} causal={causal} " \
-              f"q_offset={q_off} D={d} strided={strided}"
-        err = check_close(tag + " out", out, ref_out, FLASH_ATOL, BF16_RTOL)
+        tag = f"flash B={b} S_q={s_q} S_k={s_k} H={h} causal={causal} " \
+              f"q_offset={q_off} D={d} strided={strided} {dtype}"
+        (atol, rtol), _ = _flash_tolerances(dtype)
+        err = check_close(tag + " out", out, ref_out, atol, rtol)
         lse_err = check_close(tag + " lse", lse, ref_lse, LSE_ATOL, 0.0)
-        worst = max(worst, err, lse_err)
+        del ref_out, ref_lse
+        if dtype == torch.bfloat16:
+            worst = max(worst, err, lse_err)
         visible = _visible(s_q, s_k, causal, q_off)
         pairs = b * int(visible.sum())
+        size = q.element_size()
         flops = 4.0 * h * d * pairs
-        nbytes = 2.0 * b * (2 * s_q + 2 * s_k) * h * d + 4.0 * b * s_q * h
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        nbytes = size * b * (2 * s_q + 2 * s_k) * h * d + 4.0 * b * s_q * h
+        bound_ms, bound_by = bound(flops, nbytes, _peak_flops(dtype))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = _sdpa(causal, q_off, visible)
         row = dict(
             shape=[b, s_q, h, d], s_k=s_k, causal=causal, q_offset=q_off,
-            strided=strided, route=_flash_route(d),
-            max_abs_err=err, lse_max_abs_err=lse_err,
+            strided=strided, dtype=str(dtype).removeprefix("torch."),
+            route=_flash_route(d, dtype), max_abs_err=err,
+            lse_max_abs_err=lse_err,
             kernel_ms=time_ms(lambda: fa.flash_attention_with_lse(
                 q, k, v, causal, q_off, 0)),
             plain_ms=time_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal, q_off, 0)),
-            library_ms=time_ms(lambda: lib(qt, kt, vt)), bound_ms=bound_ms,
-            bound_by=bound_by, flops=flops, bytes=nbytes)
+            library_ms=time_ms(lambda: lib(qt, kt, vt)),
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
         row["share_of_bound"] = bound_ms / row["kernel_ms"]
         emit("flash", **row)
         if _is_main(row_key):
             main = row
+        del q, k, v, qt, kt, vt, out, lse
     main["max_abs_err"] = worst
     return main
 
@@ -359,14 +420,13 @@ def phase_flash_bwd() -> tuple[dict, dict]:
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    h = 6
     worst = {"dq": 0.0, "dkv": 0.0}
     main = {}
-    for row_key in tuple(r + (128, False)
-                         for r in FLASH_BWD_SHAPES) + FLASH_MORE:
-        b, s_q, s_k, causal, q_off, d, strided = row_key
-        q, dout = (_bshd(gen, b, s_q, h, d, strided) for _ in range(2))
-        k, v = (_bshd(gen, b, s_k, h, d, strided) for _ in range(2))
+    for row_key in _flash_rows(FLASH_BWD_SHAPES):
+        b, s_q, s_k, causal, q_off, d, strided, h, dtype = row_key
+        q, dout = (_bshd(gen, b, s_q, h, d, strided, dtype)
+                   for _ in range(2))
+        k, v = (_bshd(gen, b, s_k, h, d, strided, dtype) for _ in range(2))
         out, lse = fa.flash_attention_with_lse(q, k, v, causal, q_off, 0)
         delta = (dout.float() * out.float()).sum(dim=-1)
         args = (q, k, v, dout, lse, delta, causal, q_off, 0)
@@ -375,24 +435,28 @@ def phase_flash_bwd() -> tuple[dict, dict]:
         want_dq = fa.flash_bwd_dq_reference(*args)
         want_dk, want_dv = fa.flash_bwd_dkv_reference(*args)
         torch.cuda.synchronize()
-        tag = f"flash_bwd B={b} S_q={s_q} S_k={s_k} causal={causal} " \
-              f"q_offset={q_off} D={d} strided={strided}"
-        err = {"dq": check_close(tag + " dq", dq, want_dq,
-                                 GRAD_ATOL * want_dq.abs().max().item(),
-                                 BF16_RTOL),
-               "dkv": max(check_close(tag + f" {n}", got, want,
-                                      GRAD_ATOL * want.abs().max().item(),
-                                      BF16_RTOL)
-                          for n, got, want in (("dk", dk, want_dk),
-                                               ("dv", dv, want_dv)))}
+        tag = f"flash_bwd B={b} S_q={s_q} S_k={s_k} H={h} " \
+              f"causal={causal} q_offset={q_off} D={d} strided={strided} " \
+              f"{dtype}"
+        _, (g_atol, g_rtol) = _flash_tolerances(dtype)
+
+        def close(name, got, want):
+            return check_close(f"{tag} {name}", got, want, g_atol(want),
+                               g_rtol)
+
+        err = {"dq": close("dq", dq, want_dq),
+               "dkv": max(close("dk", dk, want_dk), close("dv", dv, want_dv))}
+        del want_dq, want_dk, want_dv
         visible = _visible(s_q, s_k, causal, q_off)
         pairs = b * int(visible.sum())
-        # Each input read once, each output written once: bf16 q, k, v, dO
-        # and f32 lse, delta in; bf16 dq (or dk and dv) out.
-        read = 2.0 * b * (2 * s_q + 2 * s_k) * h * d + 8.0 * b * s_q * h
-        work = {"dq": (3 * 2.0 * d * h * pairs, read + 2.0 * b * s_q * h * d),
+        # Each input read once, each output written once: q, k, v, dO and
+        # f32 lse, delta in; dq (or dk and dv) out.
+        size = q.element_size()
+        read = size * b * (2 * s_q + 2 * s_k) * h * d + 8.0 * b * s_q * h
+        work = {"dq": (3 * 2.0 * d * h * pairs,
+                       read + size * b * s_q * h * d),
                 "dkv": (4 * 2.0 * d * h * pairs,
-                        read + 4.0 * b * s_k * h * d)}
+                        read + 2.0 * size * b * s_k * h * d)}
         kernel = {"dq": lambda: fa.flash_bwd_dq(*args),
                   "dkv": lambda: fa.flash_bwd_dkv(*args)}
         plain = {"dq": lambda: fa.flash_bwd_dq_reference(*args),
@@ -401,18 +465,20 @@ def phase_flash_bwd() -> tuple[dict, dict]:
         # a graph built once.
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        lib_out = _sdpa(causal, q_off, visible)(qt, kt, vt)
         dout_t = dout.transpose(1, 2).contiguous()
+        lib_out = _sdpa(causal, q_off, visible)(qt, kt, vt)
         library_ms = time_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dout_t, retain_graph=True))
         for name in ("dq", "dkv"):
             flops, nbytes = work[name]
-            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-            worst[name] = max(worst[name], err[name])
+            bound_ms, bound_by = bound(flops, nbytes, _peak_flops(dtype))
+            if dtype == torch.bfloat16:
+                worst[name] = max(worst[name], err[name])
             row = dict(
                 kernel=f"flash_bwd_{name}", shape=[b, s_q, h, d], s_k=s_k,
                 causal=causal, q_offset=q_off, strided=strided,
-                route=_flash_route(d), max_abs_err=err[name],
+                dtype=str(dtype).removeprefix("torch."),
+                route=_flash_route(d, dtype), max_abs_err=err[name],
                 kernel_ms=time_ms(kernel[name]),
                 plain_ms=time_ms(plain[name]), library_ms=library_ms,
                 library_computes="dq, dk and dv", bound_ms=bound_ms,
@@ -421,7 +487,7 @@ def phase_flash_bwd() -> tuple[dict, dict]:
             emit("flash_bwd", **row)
             if _is_main(row_key):
                 main[name] = row
-        del lib_out
+        del lib_out, q, k, v, dout, qt, kt, vt, dout_t, dq, dk, dv
     for name in main:
         main[name]["max_abs_err"] = worst[name]
     return main["dq"], main["dkv"]
@@ -729,33 +795,9 @@ def phase_train() -> dict:
                 raise AssertionError(f"{name} train step, kernels vs plain "
                                      f"versions: {c}, bounds {bounds}")
         model.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launches()
-        losses = [tt.train_step(model, opt, tokens)
-                  for _ in range(tt.WARMUP_STEPS)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses += [tt.train_step(model, opt, tokens)
-                   for _ in range(tt.TIMED_STEPS)]
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / tt.TIMED_STEPS
-        launches = {name: k.launches for name, k in _build.KERNELS.items()}
-        peak = torch.cuda.max_memory_allocated()
-        losses = [float(x) for x in losses]
-
-        steps = tt.WARMUP_STEPS + tt.TIMED_STEPS
-        norms = 2 * cfg.num_layers + 1
-        per_step = {"flash_fwd": cfg.num_layers,
-                    "flash_bwd_dq": cfg.num_layers,
-                    "flash_bwd_dkv": cfg.num_layers,
-                    "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}
-        if launches != {n: steps * c for n, c in per_step.items()}:
-            raise AssertionError(f"train launches {launches} over {steps} "
-                                 f"steps, want {per_step} per step")
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            raise AssertionError(f"train losses not finite and falling: "
-                                 f"{losses}")
+        losses, step_s, launches, peak = _timed_steps(model, opt, tokens)
+        per_step = _per_step(cfg)
+        _check_steps("train", losses, launches, per_step)
 
         plan = overlap_plan()
         if not _is_bypass(plan):
@@ -778,6 +820,271 @@ def phase_train() -> dict:
              launches=launches, launches_per_step=per_step,
              max_memory_allocated=peak, breakdown=breakdown,
              step_vs_plain=checks, overlap_plan=plan)
+    finally:
+        basics.shutdown()
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "max_memory_allocated": peak, "breakdown": breakdown}
+
+
+def _timed_steps(model, opt, tokens, accumulate: int = 1):
+    """``WARMUP_STEPS`` + ``TIMED_STEPS`` training steps from zeroed
+    launch counts and peak memory: the losses, the timed steps' mean time
+    (host clock, ending in a synchronize), the launches of every kernel
+    over all the steps, and the peak memory."""
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses = [tt.train_step(model, opt, tokens, accumulate)
+              for _ in range(tt.WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [tt.train_step(model, opt, tokens, accumulate)
+               for _ in range(tt.TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / tt.TIMED_STEPS
+    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    return ([float(x) for x in losses], step_s, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def _per_step(cfg, accumulate: int = 1) -> dict:
+    """Each kernel's launches in one 162M step: a flash forward, dq and
+    dk/dv per layer and 2L + 1 norms, forward and backward; under remat
+    every block's forward (its flash forward and two norms) runs twice."""
+    layers, norms = cfg.num_layers, 2 * cfg.num_layers + 1
+    fwd, norm_fwd = (2 * layers, norms + 2 * layers) if cfg.remat else \
+        (layers, norms)
+    per = {"flash_fwd": fwd, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+           "rmsnorm_fwd": norm_fwd, "rmsnorm_bwd": norms}
+    return {n: c * accumulate for n, c in per.items()}
+
+
+def _check_steps(phase, losses, launches, per_step) -> None:
+    from horovod_tpu_torch import train_transformer as tt
+
+    steps = tt.WARMUP_STEPS + tt.TIMED_STEPS
+    if launches != {n: steps * c for n, c in per_step.items()}:
+        raise AssertionError(f"{phase} launches {launches} over {steps} "
+                             f"steps, want {per_step} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase} losses not finite and falling: "
+                             f"{losses}")
+
+
+def _grads_vs(model, ref_loss, ref_grads, loss) -> dict:
+    """``model``'s ``.grad`` and ``loss`` against a reference step's."""
+    rel = {n: ((p.grad.float() - ref_grads[n]).norm()
+               / ref_grads[n].norm()).item()
+           for n, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    return {"loss": loss, "ref_loss": ref_loss,
+            "loss_diff": abs(loss - ref_loss),
+            "bit_equal": all(torch.equal(p.grad.float(), ref_grads[n])
+                             for n, p in model.named_parameters()),
+            "finite": all(bool(torch.isfinite(p.grad).all())
+                          for p in model.parameters()),
+            "grad_rel_l2_max": rel[worst], "worst_param": worst}
+
+
+def _within_train_bounds(phase, c) -> None:
+    if not c["finite"] or c["loss_diff"] > TRAIN_LOSS_ATOL \
+            or c["grad_rel_l2_max"] > TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"{phase}: {c}, bounds {TRAIN_LOSS_ATOL}, "
+                             f"{TRAIN_GRAD_REL_L2}")
+
+
+def _one_step_grads(model, tokens):
+    """The loss and each parameter's gradient (f32 copies) of one
+    full-batch step, ``.grad`` zeroed after."""
+    from horovod_tpu_torch import train_transformer as tt
+
+    model.zero_grad(set_to_none=True)
+    loss = tt.loss_fn(model, tokens)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+# Resident parameter against bf16(master): the JAX package's own bound
+# (tests/test_training.py, test_master_weights_tracks_f32_training),
+# |p - bf16(m)| <= MASTER_ATOL + MASTER_RTOL * |bf16(m)|.  The delta-add
+# p + (bf16(m) - p) is exact where the subtraction is (Sterbenz); else the
+# delta rounds to half an ulp of |delta| (an update, ~lr), which near zero
+# is more than an ulp of the result but far inside MASTER_ATOL.
+MASTER_RTOL, MASTER_ATOL = 0.008, 4e-5
+
+
+def _resident_vs_master(opt) -> dict:
+    """How far each resident parameter lies from bf16(its master): the
+    share that is exact, the largest distance in bf16 ulps (bit patterns
+    mapped to a monotone integer order), and whether every one is within
+    the JAX package's bound."""
+    mw = opt._opt
+    resident = [p for g in mw.param_groups for p in g["params"]]
+
+    def order(t):
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    worst, worst_abs, exact, total, within = 0, 0.0, 0, 0, True
+    for p, m in zip(resident, mw.masters()):
+        b = m.to(p.dtype)
+        d = (order(p.detach()) - order(b)).abs()
+        diff = (p.detach().float() - b.float()).abs()
+        worst = max(worst, int(d.max()))
+        worst_abs = max(worst_abs, float(diff.max()))
+        exact += int((d == 0).sum())
+        total += d.numel()
+        within &= bool((diff <= MASTER_ATOL
+                        + MASTER_RTOL * b.float().abs()).all())
+    return {"exact_share": exact / total, "max_ulps": worst,
+            "max_abs_diff": worst_abs, "within_bound": within,
+            "params": total}
+
+
+def _train_row(phase, cfg, n_params, losses, step_s, launches, per_step,
+               peak, **extra) -> None:
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+
+    tok_s = tt.BATCH * tt.SEQ_LEN / step_s
+    emit(phase, params=n_params, batch=tt.BATCH, seq_len=tt.SEQ_LEN,
+         processes=basics.size(), param_dtype=str(cfg.param_dtype),
+         remat=cfg.remat, losses=losses, step_ms=step_s * 1e3,
+         tok_per_s=tok_s,
+         mfu=tok_s * tt.flops_per_token(n_params, cfg, tt.SEQ_LEN)
+         / PEAK_BF16_FLOPS, launches=launches, launches_per_step=per_step,
+         max_memory_allocated=peak, **extra)
+
+
+def phase_train_mixed(train: dict) -> dict:
+    """The 162M step with ``--bf16-params``: bf16-resident parameters,
+    ``DistributedOptimizer(master_weights(AdamW))``; after the steps every
+    resident parameter must lie on bf16(master), within the JAX package's
+    bound where the delta-add rounds."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()
+    try:
+        dev = basics.device()
+        cfg = tt.train_config(param_dtype=torch.bfloat16)
+        model, opt = tt.make_trainer(cfg, dev, SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = tt.token_batch(cfg.vocab_size, dev)
+        losses, step_s, launches, peak = _timed_steps(model, opt, tokens)
+        per_step = _per_step(cfg)
+        _check_steps("train_mixed", losses, launches, per_step)
+        ulps = _resident_vs_master(opt)
+        if not ulps["within_bound"]:
+            raise AssertionError(f"train_mixed: resident parameters off "
+                                 f"bf16(master): {ulps}")
+        with tempfile.TemporaryDirectory() as tmp:
+            breakdown = trace.measure(
+                "train_mixed_step", lambda: tt.train_step(model, opt, tokens),
+                3, tmp)
+        _train_row("train_mixed", cfg, n_params, losses, step_s, launches,
+                   per_step, peak, resident_vs_master=ulps,
+                   breakdown=breakdown, train_breakdown=train["breakdown"],
+                   train_max_memory_allocated=train["max_memory_allocated"],
+                   train_step_ms=train["step_ms"])
+    finally:
+        basics.shutdown()
+    return launches
+
+
+def phase_train_remat(train: dict) -> dict:
+    """The 162M step with ``--remat``: one step's gradients against the
+    same step without remat (bit-equal, or within the train phase's bf16
+    bounds with the parameter named), launches with every block's forward
+    twice, and a peak memory below the ``train`` phase's."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()
+    try:
+        dev = basics.device()
+        cfg = tt.train_config(remat=True)
+        tokens = tt.token_batch(cfg.vocab_size, dev)
+        plain = Transformer(tt.train_config(), device=dev)
+        plain.load_state_dict(init_params(cfg, SEED))
+        ref_loss, ref_grads = _one_step_grads(plain, tokens)
+        remat = Transformer(cfg, device=dev)
+        remat.load_state_dict(plain.state_dict())
+        del plain
+        remat.zero_grad(set_to_none=True)
+        loss = tt.loss_fn(remat, tokens)
+        loss.backward()
+        check = _grads_vs(remat, ref_loss, ref_grads, float(loss.detach()))
+        del remat, ref_grads, loss
+        if not check["bit_equal"]:
+            _within_train_bounds("train_remat, remat vs plain", check)
+        model, opt = tt.make_trainer(cfg, dev, SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        losses, step_s, launches, peak = _timed_steps(model, opt, tokens)
+        per_step = _per_step(cfg)
+        _check_steps("train_remat", losses, launches, per_step)
+        if not peak < train["max_memory_allocated"]:
+            raise AssertionError(f"train_remat peak memory {peak} B, the "
+                                 f"train phase's "
+                                 f"{train['max_memory_allocated']} B")
+        with tempfile.TemporaryDirectory() as tmp:
+            breakdown = trace.measure(
+                "train_remat_step", lambda: tt.train_step(model, opt, tokens),
+                3, tmp)
+        _train_row("train_remat", cfg, n_params, losses, step_s, launches,
+                   per_step, peak, remat_vs_plain=check, breakdown=breakdown,
+                   train_max_memory_allocated=train["max_memory_allocated"],
+                   train_step_ms=train["step_ms"])
+    finally:
+        basics.shutdown()
+    return launches
+
+
+def phase_train_accumulate(accumulate: int = 4) -> dict:
+    """The 162M step with ``--accumulate 4`` at B = 8: the loss and
+    gradients of ``accumulate_gradients`` against the full-batch step,
+    within the train phase's bf16 bounds, and launches of 4× a step's."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.training import accumulate_gradients
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()
+    try:
+        dev = basics.device()
+        cfg = tt.train_config()
+        model, opt = tt.make_trainer(cfg, dev, SEED, accumulate=accumulate)
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = tt.token_batch(cfg.vocab_size, dev)
+        ref_loss, ref_grads = _one_step_grads(model, tokens)
+        loss = accumulate_gradients(lambda mb: tt.loss_fn(model, mb),
+                                    tokens, accumulate)
+        check = _grads_vs(model, ref_loss, ref_grads, float(loss))
+        del ref_grads
+        model.zero_grad(set_to_none=True)
+        _within_train_bounds("train_accumulate, 4 microbatches vs the full "
+                             "batch", check)
+        losses, step_s, launches, peak = _timed_steps(model, opt, tokens,
+                                                      accumulate)
+        per_step = _per_step(cfg, accumulate)
+        _check_steps("train_accumulate", losses, launches, per_step)
+        with tempfile.TemporaryDirectory() as tmp:
+            breakdown = trace.measure(
+                "train_accumulate_step",
+                lambda: tt.train_step(model, opt, tokens, accumulate), 3, tmp)
+        _train_row("train_accumulate", cfg, n_params, losses, step_s,
+                   launches, per_step, peak, accumulate=accumulate,
+                   microbatch=tt.BATCH // accumulate,
+                   accumulate_vs_full_batch=check, breakdown=breakdown)
     finally:
         basics.shutdown()
     return launches
@@ -867,8 +1174,13 @@ def main() -> int:
     serve_launches = phase_serve()
     if not (serve_launches["flash_fwd"] and serve_launches["rmsnorm_fwd"]):
         raise AssertionError("the serve run launched no forward kernel")
-    # Launches on the training path: the 162M run.
-    launches = phase_train()
+    # Launches on the training path: the 162M run; each phase counts its
+    # own run.
+    train = phase_train()
+    launches = train["launches"]
+    phase_train_mixed(train)
+    phase_train_remat(train)
+    phase_train_accumulate()
     phase_resnet()
     entries = []
     tensor_cores, cuda_cores = "tensor cores (wgmma)", "CUDA cores"

@@ -16,7 +16,12 @@ surface below, the backward kernels of flash attention and RMSNorm, and
 ``python -m horovod_tpu_torch.train_transformer``; and the rest of the
 main path: gradient overlap in ``DistributedOptimizer`` with its bucket
 planner (``overlap_plan()``), ResNet and the MNIST models, and
-``python -m horovod_tpu_torch.train_resnet``.  Importing the package
+``python -m horovod_tpu_torch.train_resnet``; mixed precision
+(:func:`master_weights`), ``TransformerConfig.remat`` and
+:func:`accumulate_gradients` in the 162M step, the rest of the collective
+surface (``prescale_factor``, ``average=``, :func:`alltoall`,
+:func:`allgather_object`, sparse gradients, the int8 wire with error
+feedback, ``init(ranks=...)``) and ``callbacks``.  Importing the package
 creates no process group; :func:`init` does.
 """
 
@@ -26,27 +31,33 @@ from horovod_tpu_torch.basics import (NotInitializedError, cross_rank,
                                       cross_size, init, is_initialized,
                                       local_rank, local_size, num_chips,
                                       rank, shutdown, size)
-from horovod_tpu_torch.ops.collective_ops import (allgather, allreduce,
-                                                  broadcast,
-                                                  grouped_allreduce)
+from horovod_tpu_torch.ops.collective_ops import (
+    allgather, allgather_object, allreduce, allreduce_sparse, alltoall,
+    broadcast, grouped_allreduce, quantized_grouped_allreduce,
+    sparse_to_dense)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.ops.schedule_plan import overlap_plan
 from horovod_tpu_torch.training import (DistributedOptimizer,
+                                        accumulate_gradients,
                                         broadcast_object,
                                         broadcast_optimizer_state,
-                                        broadcast_parameters,
+                                        broadcast_parameters, master_weights,
                                         scale_learning_rate)
 from horovod_tpu_torch.utils.device import resolve_device
+
+from horovod_tpu_torch import callbacks  # noqa: E402  (imports training)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Compression", "DistributedOptimizer", "NotInitializedError",
-    "allgather", "allreduce", "broadcast", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "cross_rank",
-    "cross_size", "grouped_allreduce", "init", "is_initialized",
-    "local_rank", "local_size", "num_chips", "overlap_plan", "rank",
-    "resolve_device",
-    "scale_learning_rate", "shutdown", "size", "softmax_cross_entropy",
+    "accumulate_gradients", "allgather", "allgather_object", "allreduce",
+    "allreduce_sparse", "alltoall", "broadcast", "broadcast_object",
+    "broadcast_optimizer_state", "broadcast_parameters", "callbacks",
+    "cross_rank", "cross_size", "grouped_allreduce", "init",
+    "is_initialized", "local_rank", "local_size", "master_weights",
+    "num_chips", "overlap_plan", "quantized_grouped_allreduce", "rank",
+    "resolve_device", "scale_learning_rate", "shutdown", "size",
+    "softmax_cross_entropy", "sparse_to_dense",
 ]

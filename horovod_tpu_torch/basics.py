@@ -16,6 +16,13 @@ one process.  Rendezvous goes through the address it is given
 (``init_method``, ``JAX_COORDINATOR_ADDRESS`` as ``tcp://host:port``, or
 ``MASTER_ADDR``/``MASTER_PORT``); a job of one process without one gets a
 file store in a fresh temporary directory, so nothing binds a port.
+
+``init(ranks=[...])`` restricts the job to a subset of the processes, as
+the JAX package's does: every process of the launch joins the world group
+and enters ``dist.new_group`` (torch requires all of them there), a member's
+``rank()`` becomes its position in the list and ``size()`` the list's
+length, and every collective of the port runs over that group
+(:func:`process_group`).  A process that is not in the list raises.
 """
 
 from __future__ import annotations
@@ -52,6 +59,10 @@ class Topology:
     cross_rank: int      # index of this host
     cross_size: int      # number of hosts
     device: torch.device
+    # The launch ranks of the job's members, in rank order (all of them
+    # unless init(ranks=...)), and their group (None: the world group).
+    members: tuple = ()
+    group: object = None
 
 
 _lock = threading.Lock()
@@ -84,12 +95,16 @@ def _rendezvous(size: int) -> str:
 
 
 def init(*, device=None, init_method: str | None = None,
-         rank: int | None = None, size: int | None = None) -> None:
+         rank: int | None = None, size: int | None = None,
+         ranks=None) -> None:
     """Join the job: the analog of ``hvd.init()``.
 
     ``device`` is ``cuda`` unless given (NCCL; raises without a card) or
     ``"cpu"`` (gloo).  ``rank``/``size``/``init_method`` override the
-    environment.  Safe to call more than once: later calls are no-ops.
+    environment.  ``ranks`` restricts the job to those launch ranks (every
+    process of the launch calls ``init`` with the same list; a non-member
+    raises ``ValueError`` after the group is formed).  Safe to call more
+    than once: later calls are no-ops.
     """
     global _topology
     with _lock:
@@ -117,16 +132,34 @@ def init(*, device=None, init_method: str | None = None,
             backend = "nccl"
         else:
             backend = "gloo"
+        members = tuple(range(size)) if ranks is None else \
+            tuple(int(r) for r in ranks)
+        if len(set(members)) != len(members) or not members or any(
+                not 0 <= r < size for r in members):
+            raise ValueError(f"init(ranks={list(ranks)}): ranks must be "
+                             f"distinct process indices in [0, {size})")
         try:
             dist.init_process_group(backend, init_method=init_method,
                                     rank=rank, world_size=size)
+            group = None
+            if len(members) < size:
+                group = dist.new_group(list(members))
         except BaseException:
             _remove_store_dir()
             raise
+        if rank not in members:
+            dist.destroy_process_group()
+            _remove_store_dir()
+            raise ValueError(
+                f"process {rank} is not in init(ranks={list(ranks)}); every "
+                f"member passes the same list, and a non-member does not "
+                f"join the job")
         _topology = Topology(
-            rank=rank, size=size, local_rank=local_rank,
-            local_size=local_size, cross_rank=rank // local_size,
-            cross_size=-(-size // local_size), device=dev)
+            rank=members.index(rank), size=len(members),
+            local_rank=local_rank, local_size=local_size,
+            cross_rank=rank // local_size,
+            cross_size=-(-size // local_size), device=dev, members=members,
+            group=group)
     atexit.register(shutdown)
 
 
@@ -194,3 +227,14 @@ def num_chips() -> int:
 def device() -> torch.device:
     """The device this process computes and communicates on."""
     return _topo().device
+
+
+def process_group():
+    """The ``torch.distributed`` group of the job's members (``None``, the
+    world group, unless ``init(ranks=...)``)."""
+    return _topo().group
+
+
+def launch_rank(r: int) -> int:
+    """The launch (world) rank of the job's rank ``r``."""
+    return _topo().members[r]

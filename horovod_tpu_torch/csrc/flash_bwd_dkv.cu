@@ -51,15 +51,23 @@
 // (horovod_tpu/ops/flash_attention.py:142-146, :560-564).
 //
 // The CUDA-core route (chosen by dtype and head dim, never on failure):
-// float32 at every head dim, since f32 inputs cannot meet the f32 checks'
-// 1e-4 through bf16 tensor-core products, and both dtypes at D = 256,
-// where the tensor-core kernel's tiles are not instantiated.  It keeps the
-// first version's design: one block per (64-key tile, batch*head) looping
-// over 64-row Q/dO tiles staged through shared memory in f32; each warp
-// owns 8 keys and updates them 4 at a time.  At D = 256 the key tile is 32
-// keys (4 a warp), so that the tiles fit the 227 KB a block may use
-// (209 KB).  bf16 inputs are widened on load, dk and dv rounded once, and
-// p stays f32 for dv, as in the plain version.
+// float32 at D = 64, 128 and 256, since f32 inputs cannot meet the f32
+// checks' 1e-4 through bf16 tensor-core products, and both dtypes at
+// D = 256, where the tensor-core kernel's tiles are not instantiated.  It
+// keeps the first version's design: one block per (batch*head, 64-key
+// tile) looping over 64-row Q/dO tiles staged through shared memory in f32;
+// each warp owns 8 keys and updates them 4 at a time.  At D = 256 the key
+// tile is 32 keys (4 a warp), so that the tiles fit the 227 KB a block may
+// use (209 KB).  bf16 inputs are widened on load, dk and dv rounded once,
+// and p stays f32 for dv, as in the plain version.
+//
+// Head dims past 256 (namespace wide; both dtypes; the caller zero-pads D
+// to a multiple of 64): each block owns one 64-column slice of dk and dv on
+// the grid's z axis and sums S^T and dP^T over D in 64-wide chunks; every
+// slice recomputes the same p and ds.  Right, not fast.
+//
+// Every route puts batch*head on the grid's x axis, and every offset is
+// formed in 64-bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -139,9 +147,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdelta = slse2 + kBQ;
   float* sok = sdelta + kBQ;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.y * kBK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long rs = (long)H * D;   // elements between consecutive positions
   const T* qb = q + ((long)b * Sq * H + h) * D;
@@ -293,7 +301,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + Keys<D>::kBK - 1) / Keys<D>::kBK, B * H);
+  dim3 grid(B * H, (Sk + Keys<D>::kBK - 1) / Keys<D>::kBK);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -302,6 +310,225 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       k_offset, qscale);
   return (int)cudaGetLastError();
 }
+
+
+// ---- head dims past 256: CUDA cores, a slice of the columns a block -------
+
+namespace wide {
+
+constexpr int kBK = 64;        // keys per block
+constexpr int kPerWarp = kBK / kWarps, kGroups = kPerWarp / kR;   // 8, 2
+constexpr int kC = 64;         // columns of a chunk of the D sums, and of a slice
+constexpr int kDL = kC / 32;   // dk/dv columns per lane
+
+constexpr size_t smem_bytes() {
+  // K and V chunks [BK][C] (read by broadcast), q~ and dO chunks [BQ][C+1]
+  // (padded as above), the q~ and dO slices [BQ][C], per-warp p and ds
+  // [warps][R][BQ] each, and per-row lse*log2e, delta and "attended to
+  // something" flags [BQ].
+  return sizeof(float) * (size_t)(2 * kBK * kC + 2 * kBQ * (kC + 1) +
+                                  2 * kBQ * kC + 2 * kWarps * kR * kBQ +
+                                  3 * kBQ);
+}
+
+// One block per (batch*head, 64-key tile, 64-column slice of dk and dv).
+// S^T and dP^T sum over D in 64-wide chunks staged through shared memory,
+// in the order d = 0 .. D-1 of the route above, so every slice forms the
+// same p and ds; each block keeps only its slices of q~ and dO for
+// dv += p^T.dO and dk += ds^T.q~.  D is a multiple of 64.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int Sq, int Sk, int D,
+                          int causal, int q_offset, int k_offset,
+                          float qscale) {
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* sv = sk + kBK * kC;
+  float* sq = sv + kBK * kC;
+  float* sdo = sq + kBQ * (kC + 1);
+  float* sqs = sdo + kBQ * (kC + 1);
+  float* sdos = sqs + kBQ * kC;
+  float* sp = sdos + kBQ * kC;
+  float* sds = sp + kWarps * kR * kBQ;
+  float* slse2 = sds + kWarps * kR * kBQ;
+  float* sdelta = slse2 + kBQ;
+  float* sok = sdelta + kBQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kBK;
+  const int c0 = blockIdx.z * kC;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long rs = (long)H * D;
+  const T* qb = q + ((long)b * Sq * H + h) * D;
+  const T* dob = dout + ((long)b * Sq * H + h) * D;
+  const T* kb = k + ((long)b * Sk * H + h) * D;
+  const T* vb = v + ((long)b * Sk * H + h) * D;
+
+  float dka[kGroups][kR][kDL], dva[kGroups][kR][kDL];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int i = 0; i < kDL; ++i) dka[g][r][i] = dva[g][r][i] = 0.f;
+
+  const int n_q_tiles = (Sq + kBQ - 1) / kBQ;
+  int t_start = 0;
+  if (causal) {
+    const int lead = k_offset + k0 - q_offset;
+    t_start = lead > 0 ? min(lead / kBQ, n_q_tiles) : 0;
+  }
+
+  for (int t = t_start; t < n_q_tiles; ++t) {
+    const int q0 = t * kBQ;
+    float s[kGroups][kR][2], dp[kGroups][kR][2];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        s[g][r][0] = s[g][r][1] = dp[g][r][0] = dp[g][r][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kC) {
+      __syncthreads();   // the previous chunk (and tile) is consumed
+      for (int i = tid; i < kBK * kC; i += kThreads) {
+        const int c = i / kC, d = i % kC;
+        const bool in = k0 + c < Sk;
+        const long at = (long)(k0 + c) * rs + d0 + d;
+        sk[i] = in ? to_f(kb[at]) : 0.f;
+        sv[i] = in ? to_f(vb[at]) : 0.f;
+      }
+      for (int i = tid; i < kBQ * kC; i += kThreads) {
+        const int r = i / kC, d = i % kC;
+        const bool in = q0 + r < Sq;
+        const long at = (long)(q0 + r) * rs;
+        sq[r * (kC + 1) + d] =
+            in ? round_to<T>(to_f(qb[at + d0 + d]) * qscale) : 0.f;
+        sdo[r * (kC + 1) + d] = in ? to_f(dob[at + d0 + d]) : 0.f;
+        if (d0 == 0) {
+          sqs[i] = in ? round_to<T>(to_f(qb[at + c0 + d]) * qscale) : 0.f;
+          sdos[i] = in ? to_f(dob[at + c0 + d]) : 0.f;
+        }
+      }
+      if (d0 == 0) {
+        for (int r = tid; r < kBQ; r += kThreads) {
+          float l = kNegInf, dl = 0.f;
+          if (q0 + r < Sq) {
+            const long at = ((long)b * Sq + q0 + r) * H + h;
+            l = lse[at];
+            dl = delta[at];
+          }
+          slse2[r] = l * kLog2e;
+          sdelta[r] = dl;
+          sok[r] = (q0 + r < Sq && l > kNegInf / 2) ? 1.f : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int kbase = warp * kPerWarp + g * kR;
+#pragma unroll 4
+        for (int d = 0; d < kC; ++d) {
+          const float qa = sq[lane * (kC + 1) + d];
+          const float qc = sq[(lane + 32) * (kC + 1) + d];
+          const float ga = sdo[lane * (kC + 1) + d];
+          const float gc = sdo[(lane + 32) * (kC + 1) + d];
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float kv = sk[(kbase + r) * kC + d];
+            const float vv = sv[(kbase + r) * kC + d];
+            s[g][r][0] = fmaf(qa, kv, s[g][r][0]);
+            s[g][r][1] = fmaf(qc, kv, s[g][r][1]);
+            dp[g][r][0] = fmaf(ga, vv, dp[g][r][0]);
+            dp[g][r][1] = fmaf(gc, vv, dp[g][r][1]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int kbase = warp * kPerWarp + g * kR;
+      float* pw = sp + warp * kR * kBQ;
+      float* dsw = sds + warp * kR * kBQ;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int key = k0 + kbase + r;
+        const int kpos = k_offset + key;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int lr = lane + 32 * j;
+          const bool ok = sok[lr] != 0.f && key < Sk &&
+                          (!causal || q_offset + q0 + lr >= kpos);
+          const float p = ok ? exp2f(s[g][r][j] - slse2[lr]) : 0.f;
+          pw[r * kBQ + lr] = p;
+          dsw[r * kBQ + lr] = round_to<T>(p * (dp[g][r][j] - sdelta[lr]));
+        }
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int c = 0; c < kBQ; ++c) {
+        float gv[kDL], qv[kDL];
+#pragma unroll
+        for (int i = 0; i < kDL; ++i) {
+          gv[i] = sdos[c * kC + lane + 32 * i];
+          qv[i] = sqs[c * kC + lane + 32 * i];
+        }
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float p = pw[r * kBQ + c];
+          const float ds = dsw[r * kBQ + c];
+#pragma unroll
+          for (int i = 0; i < kDL; ++i) {
+            dva[g][r][i] = fmaf(p, gv[i], dva[g][r][i]);
+            dka[g][r][i] = fmaf(ds, qv[i], dka[g][r][i]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  T* dkb = dk + ((long)b * Sk * H + h) * D + c0;
+  T* dvb = dv + ((long)b * Sk * H + h) * D + c0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int key = k0 + warp * kPerWarp + g * kR + r;
+      if (key >= Sk) continue;
+#pragma unroll
+      for (int i = 0; i < kDL; ++i) {
+        dkb[(long)key * rs + lane + 32 * i] = from_f<T>(dka[g][r][i] * kLn2);
+        dvb[(long)key * rs + lane + 32 * i] = from_f<T>(dva[g][r][i]);
+      }
+    }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv, int B,
+           int H, int Sq, int Sk, int D, int causal, int q_offset,
+           int k_offset, float qscale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Sk + kBK - 1) / kBK, D / kC);
+  flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, D, causal,
+      q_offset, k_offset, qscale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
 
 
 // ---- bf16: tensor cores --------------------------------------------------
@@ -552,7 +779,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores at D = 64
-// and 128, CUDA cores at D = 256); q, k, v, dout, dk and dv of that dtype,
+// and 128, CUDA cores at D = 256 and past it, D a multiple of 64); q, k, v, dout, dk and dv of that dtype,
 // [B, S, H, D] contiguous; lse and delta float32 [B, Sq, H].  qscale is
 // D**-0.5 * log2(e) of the caller's head dim, rounded to float by the
 // caller (which zero-pads other head dims to these).  Returns a cudaError_t, or -1 for a dtype/head_dim combination
@@ -576,5 +803,9 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return tc::launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 128)
     return tc::launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+  if (D > 256 && D % 64 == 0)
+    return dtype == 0
+        ? wide::launch<float>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s)
+        : wide::launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s);
   return -1;
 }

@@ -53,14 +53,22 @@
 //   keys are masked.
 //
 // The CUDA-core route (chosen by dtype and head dim, never on failure):
-// float32 at every head dim, since f32 inputs cannot meet the f32 checks'
-// 1e-4 through bf16 tensor-core products, and both dtypes at D = 256,
-// where the tensor-core kernel's tiles are not instantiated.  It keeps the
-// first version's design: one block per (64-row q tile, batch*head)
-// looping over 64-key K/V tiles staged through shared memory in f32; each
-// warp owns 8 q rows and updates them 4 at a time.  At D = 256 the q tile
-// is 32 rows (4 a warp), so that the tiles fit the 227 KB a block may use
-// (201 KB).  bf16 inputs are widened on load and dq rounded once.
+// float32 at D = 64, 128 and 256, since f32 inputs cannot meet the f32
+// checks' 1e-4 through bf16 tensor-core products, and both dtypes at
+// D = 256, where the tensor-core kernel's tiles are not instantiated.  It
+// keeps the first version's design: one block per (batch*head, 64-row q
+// tile) looping over 64-key K/V tiles staged through shared memory in f32;
+// each warp owns 8 q rows and updates them 4 at a time.  At D = 256 the q
+// tile is 32 rows (4 a warp), so that the tiles fit the 227 KB a block may
+// use (201 KB).  bf16 inputs are widened on load and dq rounded once.
+//
+// Head dims past 256 (namespace wide; both dtypes; the caller zero-pads D
+// to a multiple of 64): each block owns one 64-column slice of dq on the
+// grid's z axis and sums S and dP over D in 64-wide chunks; every slice
+// recomputes the same ds.  Right, not fast.
+//
+// Every route puts batch*head on the grid's x axis, and every offset is
+// formed in 64-bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -138,9 +146,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdelta = slse2 + kBQ;
   float* sok = sdelta + kBQ;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.y * kBQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long rs = (long)H * D;   // elements between consecutive positions
   const T* qb = q + ((long)b * Sq * H + h) * D;
@@ -279,7 +287,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + Rows<D>::kBQ - 1) / Rows<D>::kBQ, B * H);
+  dim3 grid(B * H, (Sq + Rows<D>::kBQ - 1) / Rows<D>::kBQ);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -288,6 +296,209 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       scale);
   return (int)cudaGetLastError();
 }
+
+
+// ---- head dims past 256: CUDA cores, a slice of the columns a block -------
+
+namespace wide {
+
+constexpr int kBQ = 64;        // q rows per block
+constexpr int kPerWarp = kBQ / kWarps, kGroups = kPerWarp / kR;   // 8, 2
+constexpr int kC = 64;         // columns of a chunk of the D sums, and of a slice
+constexpr int kDL = kC / 32;   // dq columns per lane
+
+constexpr size_t smem_bytes() {
+  // q~ and dO chunks [BQ][C] (read by broadcast), K and V chunks [BK][C+1]
+  // (padded as above), the K slice [BK][C], per-warp ds [warps][R][BK], and
+  // per-row lse*log2e, delta and "attended to something" flags [BQ].
+  return sizeof(float) * (size_t)(2 * kBQ * kC + 2 * kBK * (kC + 1) +
+                                  kBK * kC + kWarps * kR * kBK + 3 * kBQ);
+}
+
+// One block per (batch*head, 64-row q tile, 64-column slice of dq).  S and
+// dP sum over D in 64-wide chunks staged through shared memory, in the
+// order d = 0 .. D-1 of the route above, so every slice forms the same ds;
+// each block keeps only its slice of K for dq += ds.K.  D is a multiple of
+// 64.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int H, int Sq, int Sk, int D, int causal,
+                         int q_offset, int k_offset, float qscale,
+                         float scale) {
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sdo = sq + kBQ * kC;
+  float* sk = sdo + kBQ * kC;
+  float* sv = sk + kBK * (kC + 1);
+  float* sks = sv + kBK * (kC + 1);
+  float* sds = sks + kBK * kC;
+  float* slse2 = sds + kWarps * kR * kBK;
+  float* sdelta = slse2 + kBQ;
+  float* sok = sdelta + kBQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * kBQ;
+  const int c0 = blockIdx.z * kC;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long rs = (long)H * D;
+  const T* qb = q + ((long)b * Sq * H + h) * D;
+  const T* dob = dout + ((long)b * Sq * H + h) * D;
+  const T* kb = k + ((long)b * Sk * H + h) * D;
+  const T* vb = v + ((long)b * Sk * H + h) * D;
+
+  for (int r = tid; r < kBQ; r += kThreads) {
+    float l = kNegInf, dl = 0.f;
+    if (q0 + r < Sq) {
+      const long at = ((long)b * Sq + q0 + r) * H + h;
+      l = lse[at];
+      dl = delta[at];
+    }
+    slse2[r] = l * kLog2e;
+    sdelta[r] = dl;
+    sok[r] = (q0 + r < Sq && l > kNegInf / 2) ? 1.f : 0.f;
+  }
+
+  float acc[kGroups][kR][kDL];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int i = 0; i < kDL; ++i) acc[g][r][i] = 0.f;
+
+  int n_tiles = (Sk + kBK - 1) / kBK;
+  if (causal) {
+    const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
+    const int span = q_last - k_offset;
+    n_tiles = span < 0 ? 0 : min(n_tiles, span / kBK + 1);
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    float s[kGroups][kR][2], dp[kGroups][kR][2];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        s[g][r][0] = s[g][r][1] = dp[g][r][0] = dp[g][r][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kC) {
+      __syncthreads();   // the previous chunk (and tile) is consumed
+      for (int i = tid; i < kBQ * kC; i += kThreads) {
+        const int r = i / kC, d = i % kC;
+        float x = 0.f, g = 0.f;
+        if (q0 + r < Sq) {
+          x = round_to<T>(to_f(qb[(long)(q0 + r) * rs + d0 + d]) * qscale);
+          g = to_f(dob[(long)(q0 + r) * rs + d0 + d]);
+        }
+        sq[i] = x;
+        sdo[i] = g;
+      }
+      for (int i = tid; i < kBK * kC; i += kThreads) {
+        const int c = i / kC, d = i % kC;
+        const bool in = k0 + c < Sk;
+        const long at = (long)(k0 + c) * rs + d0 + d;
+        sk[c * (kC + 1) + d] = in ? to_f(kb[at]) : 0.f;
+        sv[c * (kC + 1) + d] = in ? to_f(vb[at]) : 0.f;
+        if (d0 == 0)
+          sks[c * kC + d] = in ? to_f(kb[(long)(k0 + c) * rs + c0 + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int rb = warp * kPerWarp + g * kR;
+#pragma unroll 4
+        for (int d = 0; d < kC; ++d) {
+          const float ka = sk[lane * (kC + 1) + d];
+          const float kc = sk[(lane + 32) * (kC + 1) + d];
+          const float va = sv[lane * (kC + 1) + d];
+          const float vc = sv[(lane + 32) * (kC + 1) + d];
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float qv = sq[(rb + r) * kC + d];
+            const float gv = sdo[(rb + r) * kC + d];
+            s[g][r][0] = fmaf(qv, ka, s[g][r][0]);
+            s[g][r][1] = fmaf(qv, kc, s[g][r][1]);
+            dp[g][r][0] = fmaf(gv, va, dp[g][r][0]);
+            dp[g][r][1] = fmaf(gv, vc, dp[g][r][1]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int rb = warp * kPerWarp + g * kR;
+      float* dsw = sds + warp * kR * kBK;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int lr = rb + r;
+        const int qpos = q_offset + q0 + lr;
+        const bool row_ok = sok[lr] != 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = k0 + lane + 32 * j;
+          const bool ok = row_ok && c < Sk && (!causal || qpos >= k_offset + c);
+          const float p = ok ? exp2f(s[g][r][j] - slse2[lr]) : 0.f;
+          dsw[r * kBK + lane + 32 * j] =
+              round_to<T>(p * (dp[g][r][j] - sdelta[lr]));
+        }
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int c = 0; c < kBK; ++c) {
+        float kv[kDL];
+#pragma unroll
+        for (int i = 0; i < kDL; ++i) kv[i] = sks[c * kC + lane + 32 * i];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float ds = dsw[r * kBK + c];
+#pragma unroll
+          for (int i = 0; i < kDL; ++i) acc[g][r][i] = fmaf(ds, kv[i], acc[g][r][i]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  T* dqb = dq + ((long)b * Sq * H + h) * D + c0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int qi = q0 + warp * kPerWarp + g * kR + r;
+      if (qi >= Sq) continue;
+#pragma unroll
+      for (int i = 0; i < kDL; ++i)
+        dqb[(long)qi * rs + lane + 32 * i] = from_f<T>(acc[g][r][i] * scale);
+    }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int B, int H, int Sq,
+           int Sk, int D, int causal, int q_offset, int k_offset,
+           float qscale, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wide_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ, D / kC);
+  flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), H, Sq, Sk, D, causal, q_offset, k_offset, qscale,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
 
 
 // ---- bf16: tensor cores --------------------------------------------------
@@ -541,7 +752,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores at D = 64
-// and 128, CUDA cores at D = 256); q, k, v, dout and dq of that dtype,
+// and 128, CUDA cores at D = 256 and past it, D a multiple of 64); q, k, v, dout and dq of that dtype,
 // [B, S, H, D] contiguous; lse and delta float32 [B, Sq, H].  qscale is
 // D**-0.5 * log2(e) and scale is D**-0.5 of the caller's head dim, rounded
 // to float by the caller (which zero-pads other head dims to these).  Returns a cudaError_t, or -1 for a
@@ -565,5 +776,9 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
     return tc::launch<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
   if (dtype == 1 && D == 128)
     return tc::launch<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, scale, s);
+  if (D > 256 && D % 64 == 0)
+    return dtype == 0
+        ? wide::launch<float>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, scale, s)
+        : wide::launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, scale, s);
   return -1;
 }

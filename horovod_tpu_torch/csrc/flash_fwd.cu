@@ -45,15 +45,26 @@
 // agreement the card tests and chip_smoke.py hold the kernel to.)
 //
 // The CUDA-core route (chosen by dtype and head dim, never on failure):
-// float32 at every head dim, since f32 inputs cannot meet the f32 checks'
-// 1e-5 through bf16 tensor-core products, and both dtypes at D = 256,
-// where the tensor-core kernel's tiles are not instantiated.  It keeps the
-// first version's design: one block per (64-row q tile, batch*head)
-// looping over 64-key K/V tiles staged through shared memory in f32 (200 KB
-// at D = 256, within the 227 KB a block may use); each warp owns 8 q rows
-// and updates them 4 at a time.  bf16 inputs are widened on load and the
-// output rounded once, so that route keeps p in f32, as the plain version
-// does.
+// float32 at D = 64, 128 and 256, since f32 inputs cannot meet the f32
+// checks' 1e-5 through bf16 tensor-core products, and both dtypes at
+// D = 256, where the tensor-core kernel's tiles are not instantiated.  It
+// keeps the first version's design: one block per (batch*head, 64-row q
+// tile) looping over 64-key K/V tiles staged through shared memory in f32
+// (200 KB at D = 256, within the 227 KB a block may use); each warp owns 8
+// q rows and updates them 4 at a time.  bf16 inputs are widened on load and
+// the output rounded once, so that route keeps p in f32, as the plain
+// version does.
+//
+// Head dims past 256 (namespace wide; both dtypes; the caller zero-pads D
+// to a multiple of 64): whole-D tiles no longer fit shared memory, so each
+// block owns one 64-column slice of the output on the grid's z axis and
+// sums q~.K^T over D in 64-wide chunks; every slice recomputes the same
+// scores and row statistics, so the scores cost D/64 times over.  No
+// configuration of the repository has such a head dim: right, not fast.
+//
+// Every route puts batch*head on the grid's x axis (up to 2^31 - 1 blocks;
+// y and z are capped at 65535), and every offset into q, k, v, out and lse
+// is formed in 64-bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -123,9 +134,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sv = sk + kBK * (D + 1);
   float* sp = sv + kBK * D;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.y * kBQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long rs = (long)H * D;   // elements between consecutive positions
   const T* qb = q + ((long)b * Sq * H + h) * D;
@@ -260,13 +271,195 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), H, Sq, Sk, causal, q_offset, k_offset, qscale);
   return (int)cudaGetLastError();
 }
+
+
+// ---- head dims past 256: CUDA cores, a slice of the columns a block -------
+
+namespace wide {
+
+constexpr int kC = 64;         // columns of a chunk of q.K^T, and of a slice
+constexpr int kDL = kC / 32;   // output columns per lane
+
+constexpr size_t smem_bytes() {
+  // q chunk [BQ][C], K chunk [BK][C+1] (padded as above), V slice [BK][C],
+  // per-warp probabilities [warps][R][BK].
+  return sizeof(float) *
+         (size_t)(kBQ * kC + kBK * (kC + 1) + kBK * kC + kWarps * kR * kBK);
+}
+
+// One block per (batch*head, 64-row q tile, 64-column slice of the output).
+// S = q~.K^T sums over D in 64-wide chunks staged through shared memory, in
+// the same order (d = 0 .. D-1) as the route above, so every slice of a row
+// computes the same scores, m and l; each block keeps only its slice of V
+// and of the accumulator, and slice 0 writes lse.  D is a multiple of 64.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                      int causal, int q_offset, int k_offset, float qscale) {
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sk = sq + kBQ * kC;
+  float* sv = sk + kBK * (kC + 1);
+  float* sp = sv + kBK * kC;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * kBQ;
+  const int c0 = blockIdx.z * kC;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long rs = (long)H * D;
+  const T* qb = q + ((long)b * Sq * H + h) * D;
+  const T* kb = k + ((long)b * Sk * H + h) * D;
+  const T* vb = v + ((long)b * Sk * H + h) * D;
+
+  float m[kGroups][kR], l[kGroups][kR], acc[kGroups][kR][kDL];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      m[g][r] = kNegInf;
+      l[g][r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDL; ++i) acc[g][r][i] = 0.f;
+    }
+
+  int n_tiles = (Sk + kBK - 1) / kBK;
+  if (causal) {
+    const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
+    const int span = q_last - k_offset;
+    n_tiles = span < 0 ? 0 : min(n_tiles, span / kBK + 1);
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    float s[kGroups][kR][2];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) s[g][r][0] = s[g][r][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kC) {
+      __syncthreads();   // the previous chunk (and tile) is consumed
+      for (int i = tid; i < kBQ * kC; i += kThreads) {
+        const int r = i / kC, d = i % kC;
+        float x = 0.f;
+        if (q0 + r < Sq)
+          x = to_f(from_f<T>(to_f(qb[(long)(q0 + r) * rs + d0 + d]) * qscale));
+        sq[i] = x;
+      }
+      for (int i = tid; i < kBK * kC; i += kThreads) {
+        const int c = i / kC, d = i % kC;
+        const bool in = k0 + c < Sk;
+        sk[c * (kC + 1) + d] = in ? to_f(kb[(long)(k0 + c) * rs + d0 + d]) : 0.f;
+        if (d0 == 0)
+          sv[c * kC + d] = in ? to_f(vb[(long)(k0 + c) * rs + c0 + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int rb = warp * kRowsPerWarp + g * kR;
+#pragma unroll 8
+        for (int d = 0; d < kC; ++d) {
+          const float ka = sk[lane * (kC + 1) + d];
+          const float kc = sk[(lane + 32) * (kC + 1) + d];
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float qv = sq[(rb + r) * kC + d];
+            s[g][r][0] = fmaf(qv, ka, s[g][r][0]);
+            s[g][r][1] = fmaf(qv, kc, s[g][r][1]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int rb = warp * kRowsPerWarp + g * kR;
+      float* pw = sp + warp * kR * kBK;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int qpos = q_offset + q0 + rb + r;
+        float p[2];
+        bool ok[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = k0 + lane + 32 * j;
+          ok[j] = c < Sk && (!causal || qpos >= k_offset + c);
+          if (!ok[j]) s[g][r][j] = kNegInf;
+        }
+        const float m_new =
+            fmaxf(m[g][r], warp_max(fmaxf(s[g][r][0], s[g][r][1])));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) p[j] = ok[j] ? exp2f(s[g][r][j] - m_new) : 0.f;
+        const float corr = exp2f(m[g][r] - m_new);
+        l[g][r] = l[g][r] * corr + warp_sum(p[0] + p[1]);
+        m[g][r] = m_new;
+#pragma unroll
+        for (int i = 0; i < kDL; ++i) acc[g][r][i] *= corr;
+        pw[r * kBK + lane] = p[0];
+        pw[r * kBK + lane + 32] = p[1];
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int c = 0; c < kBK; ++c) {
+        float vv[kDL];
+#pragma unroll
+        for (int i = 0; i < kDL; ++i) vv[i] = sv[c * kC + lane + 32 * i];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float p = pw[r * kBK + c];
+#pragma unroll
+          for (int i = 0; i < kDL; ++i) acc[g][r][i] = fmaf(p, vv[i], acc[g][r][i]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  T* ob = out + ((long)b * Sq * H + h) * D + c0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int qi = q0 + warp * kRowsPerWarp + g * kR + r;
+      if (qi >= Sq) continue;
+      const float denom = fmaxf(l[g][r], 1e-30f);
+#pragma unroll
+      for (int i = 0; i < kDL; ++i)
+        ob[(long)qi * rs + lane + 32 * i] = from_f<T>(acc[g][r][i] / denom);
+      if (lane == 0 && blockIdx.z == 0)
+        lse[((long)b * Sq + qi) * H + h] =
+            l[g][r] > 0.f ? m[g][r] * kLn2 + logf(denom) : kNegInf;
+    }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int H, int Sq, int Sk, int D, int causal, int q_offset,
+           int k_offset, float qscale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ, D / kC);
+  flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), H, Sq, Sk, D, causal, q_offset, k_offset,
+      qscale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
 
 
 // ---- bf16: tensor cores --------------------------------------------------
@@ -525,7 +718,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores at D = 64
-// and 128, CUDA cores at D = 256).  qscale is the caller's head dim's
+// and 128, CUDA cores at D = 256 and past it, D a multiple of 64).  qscale is the caller's head dim's
 // D**-0.5 * log2(e), rounded to float (the caller zero-pads other head dims
 // up to one of these).  Returns a cudaError_t, or -1 for a dtype/head_dim
 // combination this kernel was not built for.
@@ -546,5 +739,9 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
     return tc::launch<64>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
   if (dtype == 1 && D == 128)
     return tc::launch<128>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset, k_offset, qscale, s);
+  if (D > 256 && D % 64 == 0)
+    return dtype == 0
+        ? wide::launch<float>(q, k, v, out, lse, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s)
+        : wide::launch<__nv_bfloat16>(q, k, v, out, lse, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s);
   return -1;
 }

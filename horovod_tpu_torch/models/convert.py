@@ -29,13 +29,19 @@ from horovod_tpu_torch.models.transformer import TransformerConfig
 def params_from_flax(tree, cfg: TransformerConfig) -> dict:
     """Flax parameter tree (numpy leaves, with or without the top-level
     ``"params"`` key) -> ``state_dict`` of CPU tensors in
-    ``cfg.param_dtype`` for :class:`Transformer`."""
+    ``cfg.param_dtype`` for :class:`Transformer`.
+
+    Leaves may be float32 or bfloat16 (a flax model made with
+    ``param_dtype=jnp.bfloat16`` has ``ml_dtypes.bfloat16`` leaves, which
+    torch cannot read): each is widened to float32 first, which is exact,
+    so a bf16 tree lands on the same bf16 values."""
     p = tree.get("params", tree)
     e, hd = cfg.embed_dim, cfg.num_heads * cfg.head_dim
 
     def t(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32).to(
-            cfg.param_dtype)
+        return torch.from_numpy(
+            np.ascontiguousarray(np.asarray(a).astype(np.float32))).to(
+                cfg.param_dtype)
 
     def kernel(tree, shape=None):
         """A flax kernel as an ``nn.Linear`` weight: ``[in, out]`` (or

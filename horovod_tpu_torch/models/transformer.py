@@ -15,8 +15,17 @@ with ``lengths`` for a decode, verify or suffix step over a preallocated
 per-slot cache.  Unlike the JAX package, which returns updated copies, the
 port writes the new K/V into the cache tensors in place and returns them.
 
-Mixture-of-experts, context parallelism, rematerialisation and the paged KV
-pool are not ported yet.
+``remat=True`` rematerialises each block in the backward pass, as the JAX
+package's ``nn.remat(Block)`` does: the training forward runs every block
+under ``torch.utils.checkpoint`` (the non-reentrant form), which keeps only
+the block's inputs and runs its forward again during backward.  Decode,
+verify and ``return_kv`` calls never rematerialise.  With
+``param_dtype=torch.bfloat16`` the parameters are resident in the compute
+dtype and ``_linear``'s cast is a no-op (train them with
+``training.master_weights``).
+
+Mixture-of-experts, context parallelism and the paged KV pool are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.flash_attention import make_flash_attention
 from horovod_tpu_torch.ops.rmsnorm import FusedRMSNorm
@@ -50,6 +60,8 @@ class TransformerConfig:
     logits_dtype: Any = torch.float32
     # True runs every norm through the RMSNorm kernel.
     fused_norm: bool | None = None
+    # Rematerialise each block in the backward pass (training calls only).
+    remat: bool = False
 
 
 def config_162m(**overrides) -> TransformerConfig:
@@ -259,6 +271,8 @@ class Transformer(nn.Module):
             lengths = lengths.long()
             positions = lengths[:, None] + positions
         positions = positions.expand(tokens.shape)
+        remat = cfg.remat and not decode and not return_kv \
+            and torch.is_grad_enabled()
         kvs = []
         for i, block in enumerate(self.layers):
             if decode:
@@ -267,6 +281,8 @@ class Transformer(nn.Module):
             elif return_kv:
                 x, kv = block(x, positions, return_kv=True)
                 kvs.append(kv)
+            elif remat:
+                x = checkpoint(block, x, positions, use_reentrant=False)
             else:
                 x = block(x, positions)
         x = self.final_norm(x)

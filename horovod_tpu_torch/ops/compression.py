@@ -2,8 +2,10 @@
 ``horovod_tpu/ops/compression.py``.
 
 ``Compression.none`` / ``fp16`` / ``bf16``: a floating tensor is cast to the
-wire dtype before the collective and back after.  The int8 wire waits for
-the port's wire codec.
+wire dtype before the collective and back after.  ``Compression.int8`` is
+a wire format, not a cast: the collectives route it to
+``collective_ops.quantized_grouped_allreduce`` (per-tensor scales, error
+feedback in ``DistributedOptimizer``), and its ``compress`` raises.
 """
 
 from __future__ import annotations
@@ -65,9 +67,27 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
+class Int8Compressor(Compressor):
+    """int8 wire marker: the collectives quantize with per-tensor scales
+    (``core/qwire.py``); it is not a cast."""
+
+    @staticmethod
+    def compress(tensor):
+        raise NotImplementedError(
+            "Compression.int8 is a quantized wire format: pass it to "
+            "allreduce / DistributedOptimizer, which route it to "
+            "quantized_grouped_allreduce")
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        raise NotImplementedError("Compression.int8 is a quantized wire "
+                                  "format, not a cast")
+
+
 class Compression:
     """Registry of the compressors."""
 
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
+    int8 = Int8Compressor

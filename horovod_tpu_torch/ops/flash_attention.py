@@ -18,21 +18,27 @@ JAX package's public one, over ``[B, S, H, D]`` tensors:
   bf16 kernels: below), and applies ``scale`` to dq and ``ln 2`` to dk
   once, at the end.
 
-A CUDA tensor launches the kernels (float32 or bfloat16, any layout,
-``head_dim`` up to 256) or raises; a CPU tensor takes the plain versions.
-The wrappers hand the kernels contiguous ``[B, S, H, D]`` copies of
-strided inputs, and zero-pad the head dim up to the next of 64, 128 and
-256, the head dims the kernels are built for; the outputs and gradients
-are sliced back.  That is exact: zero columns add nothing to ``q·kᵀ``,
-and the padded columns of the output, dq, dk and dv are zero.  The scale
-is the unpadded head dim's, passed from the host.  ``head_dim`` above 256
-raises.  On the card the route follows the dtype and the (padded) head
+A CUDA tensor launches the kernels (float32 or bfloat16, any layout, any
+``head_dim``, any batch·heads) or raises; a CPU tensor takes the plain
+versions.  The wrappers hand the kernels contiguous ``[B, S, H, D]``
+copies of strided inputs, and zero-pad the head dim up to the next of 64,
+128 and 256, or past 256 to the next multiple of 64 (:func:`kernel_head_dim`);
+the outputs and gradients are sliced back.  That is exact: zero columns
+add nothing to ``q·kᵀ``, and the padded columns of the output, dq, dk and
+dv are zero.  The scale is the unpadded head dim's, passed from the host.
+Every kernel puts batch·heads on the grid's x axis, so it is not capped
+at 65535.  On the card the route follows the dtype and the (padded) head
 dim:
 
-* float32, at every head dim, and bfloat16 at 256 run every product on
+* float32 at 64, 128 and 256, and bfloat16 at 256, run every product on
   the CUDA cores in f32, with p in f32 as in the plain versions (the
   f32 tiles of 256 wide rows fill a block's shared memory, so those
   kernels take 32-row q tiles for dq and 32-key tiles for dk/dv);
+* both dtypes past 256 run the CUDA-core route's arithmetic with each
+  block owning one 64-column slice of the output (or of dq, dk and dv) on
+  the grid's third axis: the products that sum over D (``q·kᵀ``, and
+  ``dO·vᵀ`` in the backward) loop over D in 64-wide chunks, and every
+  slice recomputes the same scores and row statistics;
 * bfloat16 at 64 and 128 runs all three kernels on the tensor cores,
   whose operands are bf16, so p is carried there as follows (the plain
   versions keep f32 p, the JAX contract; ``l`` sums the f32 p in both):
@@ -80,8 +86,10 @@ DKV_KERNEL = _build.register(
     "flash_bwd_dkv", "hvd_flash_bwd_dkv",
     [_P] * 8 + [_I] * 9 + [_F, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The head dims the kernels are built for; others are zero-padded up.
+# The head dims the tiled kernels are built for; others up to 256 are
+# zero-padded up, and past 256 to a multiple of _WIDE_CHUNK (the wide route).
 _HEAD_DIMS = (64, 128, 256)
+_WIDE_CHUNK = 64
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -172,12 +180,12 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta,
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run ``d`` at: the least of
-    :data:`_HEAD_DIMS` that is at least ``d``."""
+    :data:`_HEAD_DIMS` that is at least ``d``, or past 256 the least
+    multiple of 64 that is (the wide route, which takes any such D)."""
     for kd in _HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"flash_attention: the CUDA kernels take head_dim up "
-                     f"to {_HEAD_DIMS[-1]}, got {d}")
+    return -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
 
 
 def _kernel_layout(d_kernel, *ts):
@@ -201,9 +209,6 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"flash_attention: expected q [B,Sq,H,D] and k, v "
                          f"[B,Sk,H,D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    kernel_head_dim(q.shape[-1])
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError("flash_attention: batch * heads must be <= 65535")
     if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
 

@@ -246,7 +246,7 @@ def _agree_headroom(mb: float | None) -> float | None:
     one ``all_reduce(MIN)`` over the job."""
     t = torch.tensor([-1.0 if mb is None else mb], dtype=torch.float64,
                      device=basics.device())
-    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=basics.process_group())
     low = float(t.item())
     return None if low < 0 else low
 

@@ -7,6 +7,14 @@ wall comes from the host clock around calls that end in
 ``torch.cuda.synchronize``, taken without the profiler; device time from a
 ``torch.profiler`` trace of the same calls repeated (the union of the
 kernel, copy and fill intervals).  Needs a CUDA device.
+
+Each kernel is also attributed to the operator that launched it:
+``torch.profiler`` gives the kernel the "External id" of the innermost
+CPU op open when it was launched (directly, or through the runtime call
+its "correlation" names), and the op's outermost enclosing op on its
+thread says where in the step it ran (an autograd node's
+``evaluate_function``, the optimizer's step, or the forward's top-level
+op).  :func:`measure` reports the "other" kind of kernel by that pair.
 """
 
 from __future__ import annotations
@@ -20,11 +28,13 @@ from collections import defaultdict
 import torch
 
 # Substrings of kernel names, first match wins.
-KINDS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
-         ("flash_bwd_dq", ("flash_bwd_dq_kernel",
-                           "flash_bwd_dq_wgmma_kernel")),
+KINDS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
+                        "flash_fwd_wide_kernel")),
+         ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_wgmma_kernel",
+                           "flash_bwd_dq_wide_kernel")),
          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
-                            "flash_bwd_dkv_wgmma_kernel")),
+                            "flash_bwd_dkv_wgmma_kernel",
+                            "flash_bwd_dkv_wide_kernel")),
          ("rmsnorm_fwd", ("rmsnorm_fwd_kernel", "rmsnorm_fwd_regs_kernel")),
          ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_regs_kernel",
                           "rmsnorm_bwd_wide_kernel")),
@@ -44,11 +54,57 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def device_events(trace_path: str) -> list[dict]:
+def _events(trace_path: str) -> list[dict]:
     with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    return [e for e in events
+        return json.load(f)["traceEvents"]
+
+
+def device_events(trace_path: str) -> list[dict]:
+    return [e for e in _events(trace_path)
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def launching_ops(events) -> dict:
+    """``{External id: (op, outermost op)}`` over a trace's CPU ops: each
+    op's name and the name of the outermost op enclosing it on its thread
+    (itself at top level)."""
+    threads = defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "cpu_op":
+            threads[(e.get("pid"), e.get("tid"))].append(e)
+    out = {}
+    for ops in threads.values():
+        ops.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: list[dict] = []
+        for e in ops:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+                stack.pop()
+            ext = e.get("args", {}).get("External id")
+            if ext is not None:
+                out[ext] = (e["name"], (stack[0] if stack else e)["name"])
+            stack.append(e)
+    return out
+
+
+def ops_of_kernels(events) -> list[tuple[dict, str, str]]:
+    """``(device event, op, outermost op)`` for every device event of a
+    trace; ``"?"`` where the trace links it to no op."""
+    ops = launching_ops(events)
+    runtime = {e["args"]["correlation"]: e["args"].get("External id")
+               for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "correlation" in e.get("args", {})}
+    out = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        args = e.get("args", {})
+        ext = args.get("External id")
+        if ext not in ops:
+            ext = runtime.get(args.get("correlation"))
+        op, root = ops.get(ext, ("?", "?"))
+        out.append((e, op, root))
+    return out
 
 
 def busy_us(events) -> float:
@@ -105,17 +161,34 @@ def measure(name: str, fn, calls: int, trace_dir: str) -> dict:
         torch.cuda.synchronize()
     path = os.path.join(trace_dir, f"{name}.trace.json")
     prof.export_chrome_trace(path)
-    events = device_events(path)
+    attributed = ops_of_kernels(_events(path))
+    events = [e for e, _, _ in attributed]
     by_kind, by_name = defaultdict(float), defaultdict(float)
-    for e in events:
-        by_kind[kind_of(e["name"])] += e["dur"] / 1e3 / calls
+    other = defaultdict(lambda: [0.0, 0.0])
+    name_op = defaultdict(float)
+    for e, op, root in attributed:
+        kind = kind_of(e["name"])
+        by_kind[kind] += e["dur"] / 1e3 / calls
         by_name[e["name"][:80]] += e["dur"] / 1e3 / calls
+        name_op[(e["name"][:80], f"{root} / {op}")] += e["dur"] / 1e3 / calls
+        if kind == "other":
+            entry = other[f"{root} / {op}"]
+            entry[0] += e["dur"] / 1e3 / calls
+            entry[1] += 1 / calls
     busy_ms = busy_us(events) / 1e3 / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    other_top = sorted(other.items(), key=lambda kv: -kv[1][0])[:12]
+    top_ops = {name: dict(sorted(((o, ms) for (n, o), ms in name_op.items()
+                                  if n == name), key=lambda kv: -kv[1])[:4])
+               for name, _ in top}
     return {"region": name, "calls": calls, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if events else "not measured",
             "device_idle_share": (1.0 - busy_ms / wall_ms) if events
             else "not measured",
             "device_ms_by_kind": dict(by_kind),
             "kernels_per_call": len(events) / calls,
-            "top_kernels_ms": dict(top)}
+            "top_kernels_ms": dict(top),
+            # For each of those: device ms per call by "outermost op / op".
+            "top_kernels_by_op": top_ops,
+            # "outermost op / op": [device ms, kernels] per call.
+            "other_by_op": {k: v for k, v in other_top}}

@@ -38,6 +38,12 @@ FLASH_CASES = [   # (S_q, S_k, causal, q_offset, k_offset, head_dim)
     # non-causal over more keys than one tile, and a ragged q tile.
     case for d in (32, 96, 160, 256) for case in (
         (200, 200, True, 0, 0, d), (100, 300, True, 200, 0, d),
+        (130, 70, False, 0, 0, d), (37, 300, True, 263, 0, d))] + [
+    # Head dims past 256, the wide route in both dtypes (each block one
+    # 64-column slice of the output, the D sums in 64-wide chunks): 320 and
+    # 384 as they are, 500 zero-padded to 512, and 512.
+    case for d in (320, 384, 500, 512) for case in (
+        (200, 200, True, 0, 0, d), (100, 300, True, 200, 0, d),
         (130, 70, False, 0, 0, d), (37, 300, True, 263, 0, d))]
 
 
@@ -134,6 +140,33 @@ def test_flash_dkv_kernel_is_deterministic(cuda, kernel, dtype):
         first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_batch_heads_past_65535(cuda, dtype):
+    # B*H = 65540 blocks on the grid's x axis (y and z stop at 65535): bf16
+    # on the tensor cores, f32 on the CUDA cores; every row of the batch
+    # against the plain versions.
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, dout = (torch.randn(16385, 64, 4, 64, generator=g, device=cuda,
+                                 dtype=dtype) for _ in range(4))
+    before = [t.launches for t in (tfa.KERNEL, tfa.DQ_KERNEL,
+                                   tfa.DKV_KERNEL)]
+    out, lse = tfa.flash_attention_with_lse(q, k, v)
+    delta = (dout.float() * out.float()).sum(-1)
+    got = tfa.flash_attention_backward(q, k, v, dout, lse, delta)
+    torch.cuda.synchronize()
+    assert [t.launches for t in (tfa.KERNEL, tfa.DQ_KERNEL,
+                                 tfa.DKV_KERNEL)] == [b + 1 for b in before]
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v)
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    del ref_out, ref_lse
+    want = tfa.flash_attention_backward_reference(q, k, v, dout, lse, delta)
+    for gr, w in zip(got, want):
+        _close(gr, w, dtype)
 
 
 def test_flash_autograd_runs_the_kernels(cuda):

@@ -84,3 +84,21 @@ def test_adapter_matches_dense_attention(causal):
         attn(q, k, v, causal=causal).numpy(),
         tm.dense_causal_attention(q, k, v, causal=causal).numpy(),
         atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [320, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dims_past_256_match_jax_kernel(d, causal):
+    # The head dims the card runs on the wide route: the plain path here
+    # against the JAX kernel, which takes any head dim.
+    q, k, v = _qkv(b=1, s_q=40, h=2, d=d, seed=5)
+    j_out, j_lse = jfa.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=16, block_k=16)
+    t_out, t_lse = tfa.flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse),
+                               atol=2e-5, rtol=2e-5)

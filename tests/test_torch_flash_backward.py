@@ -125,3 +125,15 @@ def test_backward_splits_into_the_two_kernels_plain_versions():
     assert torch.equal(dq, tfa.flash_bwd_dq_reference(*args))
     want_dk, want_dv = tfa.flash_bwd_dkv_reference(*args)
     assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+
+
+@pytest.mark.parametrize("s_q,s_k,causal,q_off,k_off", [
+    (40, 40, True, 0, 0), (16, 48, True, 32, 0)])
+def test_head_dim_320_gradients_match_jax(s_q, s_k, causal, q_off, k_off):
+    # D = 320, which the card runs on the wide route (a 64-column slice of
+    # dq, dk and dv a block): the plain path against the JAX kernels.
+    q, k, v, g = _inputs(s_q, s_k, b=1, d=320, seed=4)
+    want = _jax_grads(q, k, v, g, causal, q_off, k_off)
+    got = _torch_grads(q, k, v, g, causal, q_off, k_off)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)

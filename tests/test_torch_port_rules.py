@@ -126,11 +126,16 @@ def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
     assert [f.launches for f in fakes.values()] == [1, 1, 1]
     with pytest.raises(RuntimeError, match="forward-only"):
         tfa.flash_attention_with_lse(q, k, v)
-    # Head dims past 256 have no kernel; smaller ones are padded
-    # (test_cuda_flash_wrapper_pads_the_head_dim).
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        tfa.flash_attention(*(torch.randn(1, 8, 2, 264, requires_grad=True)
-                              for _ in range(3)))
+    # Head dims past 256 launch the kernels too, padded to a multiple of
+    # 64 (test_cuda_flash_wrapper_pads_the_head_dim), and so does a batch *
+    # heads past 65535 (the kernels put it on the grid's x axis).
+    for shape in ((1, 8, 2, 264), (65536, 1, 1, 8)):
+        tfa.flash_attention(*(torch.randn(*shape, requires_grad=True)
+                              for _ in range(3))).sum().backward()
+        fwd = fakes["KERNEL"].calls[-1]
+        assert (fwd[6], fwd[7], fwd[10]) == (shape[0], shape[2],
+                                             tfa.kernel_head_dim(shape[3]))
+    assert [f.launches for f in fakes.values()] == [3, 3, 3]
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(*(torch.randn(1, 8, 2, 64).half()
                               for _ in range(3)))
@@ -142,13 +147,14 @@ def test_cuda_flash_wrapper_trains_through_the_backward_kernels(monkeypatch):
                         property(lambda t: t is not k))
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.flash_attention(q.detach(), k, v)
-    assert [f.launches for f in fakes.values()] == [1, 1, 1]
+    assert [f.launches for f in fakes.values()] == [3, 3, 3]
 
 
 def test_cuda_flash_wrapper_pads_the_head_dim(monkeypatch):
     # A head dim other than 64, 128 and 256 goes to the kernels zero-padded
-    # to the next of them, from contiguous copies, with the scale of its
-    # own head dim; the results come back at that head dim.
+    # to the next of them (past 256, to the next multiple of 64: the wide
+    # route), from contiguous copies, with the scale of its own head dim;
+    # the results come back at that head dim.
     monkeypatch.setattr(tfa, "_on_cuda", lambda t: True)
     monkeypatch.setattr(tfa._build, "stream_of", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device",
@@ -159,7 +165,8 @@ def test_cuda_flash_wrapper_pads_the_head_dim(monkeypatch):
         monkeypatch.setattr(tfa, name, fake)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     for d, d_kernel in ((8, 64), (32, 64), (64, 64), (96, 128), (128, 128),
-                        (160, 256), (256, 256)):
+                        (160, 256), (256, 256), (257, 320), (320, 320),
+                        (384, 384), (500, 512), (1000, 1024)):
         assert tfa.kernel_head_dim(d) == d_kernel
         # q a transposed view, as ring attention's chunks are: not
         # contiguous.
@@ -175,8 +182,6 @@ def test_cuda_flash_wrapper_pads_the_head_dim(monkeypatch):
         assert fwd[-2] == dq[-3] == dkv[-2] == pytest.approx(
             d ** -0.5 * tfa.LOG2E)                           # qscale
         assert dq[-2] == pytest.approx(d ** -0.5)            # scale
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        tfa.kernel_head_dim(257)
 
 
 def _write_dscale(x, dy, scale, dx, part, dscale, counters, n_counters,
