@@ -29,7 +29,11 @@ line each:
                  with its own bound (dq: three products, one output;
                  dk/dv: four products, two outputs);
 5. rmsnorm     — the RMSNorm forward kernel against its plain version at
-                 ``[N, 768]`` bf16 and the f32 training step's rows, same
+                 ``[N, 768]`` bf16 for every N a main path gives it (the
+                 run records each shape it launches at from ``serve`` to
+                 ``train_accumulate`` and fails, in the ``rmsnorm_rows``
+                 line, on one not checked here) and the f32 training
+                 step's rows, same
                  fields, a profiled call at every row that must show
                  exactly one kernel, of the form the shape picks, and the
                  time of an empty launch beside it (the floor of the
@@ -45,6 +49,37 @@ line each:
                  ``run_until_idle``; launch counts of the forward kernels
                  over that run; one prefill repeated through the plain
                  versions;
+   serve_paged — the same model on ``PagedTransformerBackend`` (8 slots,
+                 2048 positions, 16-token pages, 512 cache pages): 16
+                 requests of ``loadgen.make_arrivals`` (3/4 open with a
+                 512-token shared prefix, then 100-400 tokens; 32 new
+                 each), all submitted at once after a warm-up request,
+                 through (a) the cache, (b) the cache off (a fresh pool
+                 with no cache pages, every prefix lookup missing), (c)
+                 the cache with speculation (``spec_k`` 4) and (d) the
+                 dense ``TransformerBackend``.  Checks: every request ends
+                 with 32 tokens; (a) hits, in whole pages; the shared
+                 prefix's pages bitwise unchanged from their first write
+                 to the end of (a); 0 flash and >= 25 RMSNorm launches a
+                 prefill, decode or verify call in (a)-(c), 12 flash a
+                 prefill in (d); (a)'s, (c)'s and (d)'s token streams
+                 equal (b)'s, leaving them only at a near tie (see
+                 :func:`compare_streams`); and a verify block of (b)'s own
+                 tokens on (b)'s pool, every draft accepted, then a decode
+                 step that reads the block back (see
+                 :func:`check_verify_block`).  Prints TTFT, token gaps,
+                 tokens/s, hit and acceptance rates, pool bytes, peak
+                 memory and the decode step's page gather and scatter
+                 device ms;
+   router      — a ``Router`` over two 162M models on the card, ``chat``
+                 paged (seed 0) and ``code`` dense (seed 1), one 8-slot
+                 replica each, 8 requests of 100-400 tokens with 16 new
+                 each per model.  Checks: every request completes on its
+                 own model, the launches (code's prefills: 12 flash each),
+                 and chat's streams against the same requests each run
+                 alone on a paged engine.  Prints per-model ``stats()``
+                 (SLO attainment at a 1000 ms TTFT target) and one
+                 ``RouterAutoscaler.decide`` verdict;
 8. train       — the 162M training step of
                  ``python -m horovod_tpu_torch.train_transformer``
                  (``init`` on NCCL, ``DistributedOptimizer(AdamW)``, B=8,
@@ -77,7 +112,10 @@ line each:
 10. kernels    — ``{"kernels": [...]}``, one entry per kernel of the path,
                  with the form it runs in for bf16 inputs (the three flash
                  kernels on the tensor cores, the two RMSNorm kernels on
-                 the CUDA cores) and a line on its design.
+                 the CUDA cores) and a line on its design; ``launches`` is
+                 the sum over the serve, serve_paged (a-d), router and
+                 train runs, each counted from 0 around its own run
+                 (``launches_by_run``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; it exits non-zero
@@ -112,6 +150,13 @@ L2_BYTES = 50 * 2**20
 RMS_HBM_MIN_BYTES = 2**20
 
 SEED = 0
+# serve_paged: 16 requests, 3/4 of them opening with a 512-token shared
+# prefix, each then a 100-400-token tail and 32 new tokens, on 16-token
+# pages with 512 cache pages; speculation drafts 4 tokens.  router: two
+# models of 8 requests of 100-400 tokens, 16 new each, a 1 s TTFT target.
+PAGED_SHARED_LEN, PAGED_REQUESTS, PAGED_NEW = 512, 16, 32
+PAGE_SIZE, PAGED_CACHE_PAGES, PAGED_SPEC_K = 16, 512, 4
+ROUTER_REQUESTS, ROUTER_NEW, ROUTER_SLO_MS = 8, 16, 1000.0
 # (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
 # prefill buckets, S=1000 (masked edge tiles), a longer and a non-causal
 # row, a query block past its keys, the training step's shape, and one
@@ -141,7 +186,12 @@ FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False, 6, torch.bfloat16),
     for dt in (torch.bfloat16, torch.float32)) + tuple(
     (16385, 64, 64, True, 0, 64, False, 4, dt)
     for dt in (torch.bfloat16, torch.float32))
-RMS_ROWS = (1, 8, 1000, 2048, 8192)     # [N, 768] bf16
+# [N, 768] bf16: every row count the main paths give the forward kernel
+# (8 decode slots; the paged verify block of 8 slots x 5; the prefill
+# buckets 128-1024; a microbatch of 2 x 1024; a training step's 8192),
+# and 1 and 1000.  ``main`` fails when a main path gives it another
+# (``record_norm_rows``).
+RMS_ROWS = (1, 8, 40, 128, 256, 512, 1000, 1024, 2048, 8192)
 # (dtype, N) of the RMSNorm forward's checks: the bf16 rows of every path
 # (register form) and the f32 training step's rows (3 KB: the loop form).
 RMS_CASES = tuple((torch.bfloat16, n) for n in RMS_ROWS) + (
@@ -201,6 +251,13 @@ TRAIN_F32_GRAD_REL_L2 = 1e-3
 # to bf16 after every attention and norm, and a rounding that differs by
 # one ulp (2**-8 relative) grows through 12 layers to a few hundredths.
 LOGITS_ATOL = 0.125
+# The paged K/V that a verify block writes against what decode steps write
+# at the same positions, ||dK|| / ||K|| over each position's heads, each
+# layer: the two round the same f32 values to bf16 after products of
+# another M, and those roundings grow through the layers as the logits'
+# do (a few percent).  A position written to the wrong page, or not at
+# all, is >= 1 (an unwritten one, zeros, exactly 1).
+KV_REL_L2 = 0.1
 # ~50 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue the 20 calls of the slowest timed function.
 SPIN_CYCLES = 100_000_000
@@ -663,7 +720,7 @@ def phase_serve() -> dict:
     done = eng.run_until_idle()
     torch.cuda.synchronize()
     wall = eng.clock() - t0
-    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    launches = _launches()
     prefills, steps = eng.counters["admitted"], eng.counters["steps"]
 
     if len(done) != len(reqs) or any(
@@ -714,7 +771,448 @@ def phase_serve() -> dict:
          tokens_per_s=rep["tokens_per_s"], wall_s=wall,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          plain_max_abs_dlogits=dlogits, plain_argmax_match=argmax_ok)
+    return launches, model
+
+
+def _serve_config(**kw):
+    from horovod_tpu_torch.serving.engine import ServingConfig
+
+    return ServingConfig(num_slots=8, buckets=(128, 256, 512, 1024),
+                         max_seq_len=2048, record_logits=True, **kw)
+
+
+def _launches() -> dict:
+    from horovod_tpu_torch.ops import _build
+
+    return {name: k.launches for name, k in _build.KERNELS.items()}
+
+
+def _run_counted(eng, prompts, new_tokens: int, after_first_step=None):
+    """Submit every prompt at once and drain the engine, with the kernels'
+    launch counts set to 0 just before and read just after; each request
+    must finish with ``new_tokens`` tokens.  ``after_first_step`` runs
+    once the first wave is admitted.  Returns the requests, the launches
+    and the wall seconds."""
+    from horovod_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = eng.clock()
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    eng.step()
+    if after_first_step is not None:
+        after_first_step()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = eng.clock() - t0
+    launches = _launches()
+    if any(r.finish_reason != "max_new_tokens"
+           or len(r.tokens) != new_tokens for r in reqs):
+        raise AssertionError(f"not every request finished with {new_tokens} "
+                             "new tokens")
+    return reqs, launches, wall
+
+
+def _check_cache_path(tag, launches, calls: int, norms: int) -> None:
+    """The cache path of the model: the RMSNorm kernel ``norms`` times (25
+    for the 162M) a prefill, decode or verify call, and never the flash
+    kernel."""
+    if launches["flash_fwd"] != 0:
+        raise AssertionError(f"{tag}: {launches['flash_fwd']} flash launches "
+                             "on the paged path (0 expected)")
+    if launches["rmsnorm_fwd"] < norms * calls:
+        raise AssertionError(f"{tag}: rmsnorm launches "
+                             f"{launches['rmsnorm_fwd']} < {norms} x {calls} "
+                             "calls")
+
+
+def compare_streams(tag, got, want) -> dict:
+    """``got``'s token streams against ``want``'s, request by request.  A
+    stream may leave ``want``'s only at a position where ``want``'s two
+    largest logits are within :data:`LOGITS_ATOL` of each other (a near
+    tie that one rounding of bf16 activations can flip), and up to and at
+    that position every row of logits must be within :data:`LOGITS_ATOL`
+    of ``want``'s."""
+    identical, rows, bitwise, worst = 0, 0, 0, 0.0
+    for g, w in zip(got, want, strict=True):
+        for j, (gl, wl) in enumerate(zip(g.logits, w.logits)):
+            d = float(np.abs(gl - wl).max())
+            worst, rows = max(worst, d), rows + 1
+            bitwise += bool(np.array_equal(gl, wl))
+            if d > LOGITS_ATOL:
+                raise AssertionError(f"{tag}: request {g.rid} position {j}: "
+                                     f"max |dlogits| {d} > {LOGITS_ATOL}")
+            if g.tokens[j] != w.tokens[j]:
+                lo, hi = np.partition(wl, -2)[-2:]
+                if hi - lo > LOGITS_ATOL:
+                    raise AssertionError(
+                        f"{tag}: request {g.rid} diverges at position {j} "
+                        f"where the top-two gap is {hi - lo}")
+                break
+        else:
+            if g.tokens != w.tokens:
+                raise AssertionError(f"{tag}: request {g.rid} streams differ")
+            identical += 1
+    return {"identical_streams": identical, "streams": len(want),
+            "bitwise_logit_rows_share": bitwise / rows,
+            "max_abs_dlogits": worst}
+
+
+def _prefix_pages(eng, prefix) -> list[int]:
+    """Page ids of ``prefix``'s chunks in the engine's prefix trie."""
+    node, pids, ps = eng.prefix._root, [], eng.prefix.page_size
+    for off in range(0, len(prefix), ps):
+        node = node.children[tuple(prefix[off:off + ps])]
+        pids.append(node.pid)
+    return pids
+
+
+def _gather_scatter_ms(backend, lengths) -> dict:
+    """Device ms of the paged decode step's gather of every slot's row and
+    its scatter of one position a slot, on the backend's pool (the
+    scatter writes back the values it gathered)."""
+    tables = backend.page_tables
+    start = torch.as_tensor(np.maximum(lengths - 1, 0), device="cuda")
+    with torch.inference_mode():
+        kd, vd = backend._gather(tables)
+        return {"gather_ms": time_ms(lambda: backend._gather(tables)),
+                "scatter_ms": time_ms(lambda: backend._scatter(
+                    tables, kd, vd, start, 1))}
+
+
+def _teacher_forced(backend, cfg, prompts, want, k: int, verify: bool):
+    """Prefill ``prompts`` (one a slot, every slot) into fresh page rows of
+    ``backend``, then feed each slot ``want``'s own tokens 0 .. k+1: as
+    k+2 decode steps, or as one verify block of tokens 0 .. k (every draft
+    ``want``'s greedy token, so every one is accepted but at a near tie)
+    and one decode step, which reads the block's K/V back from the pages.
+    Returns each ``(slot, position)``'s predicted token and logits, and
+    the K/V the pages hold at the k+2 fed positions, ``[L, slots, k+2, H,
+    D]`` in f32."""
+    pps = backend.pages_per_slot
+    n = np.array([len(p) for p in prompts])
+    out = {}
+    for t in (backend.pk, backend.pv):      # nothing of an earlier pass
+        t[:, 1:1 + len(prompts) * pps] = 0
+    for s, p in enumerate(prompts):
+        backend.attach_slot(s, list(range(1 + s * pps, 1 + (s + 1) * pps)))
+        padded = np.zeros((1, next(b for b in cfg.buckets if b >= len(p))),
+                          np.int32)
+        padded[0, :len(p)] = p
+        out[s, 0] = backend.prefill_prefixed(padded, len(p), s, 0)
+    toks = np.array([w.tokens[:k + 2] for w in want], np.int32)
+    steps = []
+    if verify:
+        preds, rows = backend.verify(toks[:, :k + 1], n + 1)
+        steps += [(j + 1, preds[:, j], rows[:, j]) for j in range(k + 1)]
+        steps.append((k + 2, *backend.decode(toks[:, k + 1], n + k + 2)))
+    else:
+        steps += [(j + 1, *backend.decode(toks[:, j], n + 1 + j))
+                  for j in range(k + 2)]
+    for j, preds, rows in steps:
+        for s in range(len(prompts)):
+            out[s, j] = int(preds[s]), rows[s]
+    with torch.inference_mode():
+        kv = [torch.stack([t[:, s, n[s]:n[s] + k + 2]
+                           for s in range(len(prompts))], 1).float()
+              for t in backend._gather(backend.page_tables)]
+    for s in range(len(prompts)):
+        backend.release_slot(s)
+    return out, kv
+
+
+def check_verify_block(backend, cfg, prompts, want, k: int) -> dict:
+    """Speculation with every draft accepted, against ``want`` (the
+    cache-off run) and against plain decode steps on the same pages.  The
+    logits of the verify block and of the decode step after it are within
+    :data:`LOGITS_ATOL` of ``want``'s, and every token is ``want``'s but at
+    a near tie (the drafts are ``want``'s own tokens); the K/V that the
+    block's columns 1 .. k wrote to their pages, read back by the decode,
+    equal what k+1 decode steps write there within :data:`KV_REL_L2`."""
+    runs = [_teacher_forced(backend, cfg, prompts, want, k, verify)
+            for verify in (False, True)]
+    worst, ties = 0.0, 0
+    for out, _ in runs:
+        for (s, j), (tok, row) in out.items():
+            wl = want[s].logits[j]
+            d = float(np.abs(row - wl).max())
+            worst = max(worst, d)
+            if d > LOGITS_ATOL:
+                raise AssertionError(f"verify block: slot {s} position {j}:"
+                                     f" max |dlogits| {d} > {LOGITS_ATOL}")
+            if tok != want[s].tokens[j]:
+                lo, hi = np.partition(wl, -2)[-2:]
+                if hi - lo > LOGITS_ATOL:
+                    raise AssertionError(
+                        f"verify block: slot {s} position {j}: token {tok} "
+                        f"!= {want[s].tokens[j]}, top-two gap {hi - lo}")
+                ties += 1
+    accepted = sum(runs[1][0][s, j][0] == want[s].tokens[j]
+                   for s in range(len(prompts)) for j in range(1, k + 1))
+    rel = max(float(((b - a).norm(dim=(-2, -1))
+                     / a.norm(dim=(-2, -1))).max())
+              for a, b in zip(runs[0][1], runs[1][1]))
+    if rel > KV_REL_L2:
+        raise AssertionError(f"verify block: K/V in the pages off plain "
+                             f"decode's by {rel} (rel. L2) > {KV_REL_L2}")
+    return {"drafts": k * len(prompts), "accepted": int(accepted),
+            "near_tie_tokens": ties, "max_abs_dlogits": worst,
+            "kv_rel_l2_max": rel}
+
+
+class _ColdPrefixCache:
+    """Wraps an engine's prefix cache so that every lookup misses: each
+    admission then prefills its whole prompt into pages of its own, and
+    none reads another's (``cache_pages=0`` alone still lets a slot attach
+    to the pages of a live or a released donor)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def lookup(self, prompt) -> int:
+        return 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def phase_serve_paged(model) -> dict:
+    """The 162M on ``PagedTransformerBackend``: shared-prefix traffic
+    through (a) the cache, (b) the cache off, (c) the cache and
+    speculation."""
+    from horovod_tpu_torch.serving import loadgen
+    from horovod_tpu_torch.serving.engine import (PagedTransformerBackend,
+                                                  ServingEngine,
+                                                  TransformerBackend)
+
+    t_phase = time.monotonic()
+    cfg = _serve_config()
+    vocab = model.cfg.vocab_size
+
+    def paged(cache_pages):
+        return PagedTransformerBackend(model, cfg.num_slots, cfg.max_seq_len,
+                                       cache_pages=cache_pages,
+                                       page_size=PAGE_SIZE)
+
+    w = loadgen.Workload(qps=1.0, duration_s=60.0, seed=SEED,
+                         prompt_lens=tuple(range(100, 401)),
+                         short_new=PAGED_NEW, long_new=PAGED_NEW,
+                         vocab=vocab, shared_frac=0.75,
+                         shared_prefix_len=PAGED_SHARED_LEN)
+    prompts = [p for _, p, _ in loadgen.make_arrivals(w)][:PAGED_REQUESTS]
+    if len(prompts) != PAGED_REQUESTS:
+        raise AssertionError(f"the workload made {len(prompts)} requests")
+    heads = collections.Counter(tuple(p[:PAGED_SHARED_LEN]) for p in prompts)
+    shared, n_shared = heads.most_common(1)[0]
+
+    backend = paged(PAGED_CACHE_PAGES)
+    warm = ServingEngine(backend, cfg)
+    warm.submit(list(range(1, 101)), 2)
+    warm.run_until_idle()
+    pool_bytes = 2 * backend.pk.numel() * backend.pk.element_size()
+
+    pages = {}
+
+    def snapshot():
+        # The shared prefix's pages as its donor's prefill wrote them.
+        pages["pids"] = _prefix_pages(eng, shared)
+        pages["bits"] = [t[:, pages["pids"]].clone()
+                         for t in (backend.pk, backend.pv)]
+
+    runs, cold = {}, paged(0)
+    norms = 2 * model.cfg.num_layers + 1
+    for run, make in (
+            ("a", lambda: ServingEngine(backend, cfg)),
+            ("b", lambda: ServingEngine(cold, cfg)),
+            ("c", lambda: ServingEngine(
+                backend, dataclasses.replace(cfg, spec_k=PAGED_SPEC_K))),
+            ("d", lambda: ServingEngine(TransformerBackend(
+                model, cfg.num_slots, cfg.max_seq_len), cfg))):
+        eng = make()
+        if run == "b":
+            eng.prefix = _ColdPrefixCache(eng.prefix)
+        torch.cuda.reset_peak_memory_stats()
+        reqs, launches, wall = _run_counted(
+            eng, prompts, PAGED_NEW, snapshot if run == "a" else None)
+        st = eng.stats()
+        calls = st["admitted"] + st["steps"]
+        if run != "d":
+            _check_cache_path(f"serve_paged ({run})", launches, calls, norms)
+        elif (launches["flash_fwd"] != st["admitted"] * model.cfg.num_layers
+              or launches["rmsnorm_fwd"] < norms * calls):
+            raise AssertionError(f"serve_paged (d): launches {launches} for "
+                                 f"{st['admitted']} prefills, {calls} calls")
+        runs[run] = dict(reqs=reqs, launches=launches, stats=st, wall=wall,
+                         calls=calls, peak=torch.cuda.max_memory_allocated())
+        if run == "a" and not (_prefix_pages(eng, shared) == pages["pids"]
+                               and all(torch.equal(t[:, pages["pids"]], b)
+                                       for t, b in zip((backend.pk,
+                                                        backend.pv),
+                                                       pages["bits"]))):
+            raise AssertionError("serve_paged: the shared prefix pages "
+                                 "changed after their first write")
+
+    a, b, c = runs["a"]["stats"], runs["b"]["stats"], runs["c"]["stats"]
+    if not a["prefix_hits"] or a["prefix_hit_tokens"] % PAGE_SIZE:
+        raise AssertionError(f"serve_paged: prefix hits {a['prefix_hits']}, "
+                             f"hit tokens {a['prefix_hit_tokens']}")
+    if b["prefix_hits"]:
+        raise AssertionError("serve_paged (b): the cache-off run hit")
+    vs_a = compare_streams("serve_paged (a) vs (b)", runs["a"]["reqs"],
+                           runs["b"]["reqs"])
+    vs_c = compare_streams("serve_paged (c) vs (b)", runs["c"]["reqs"],
+                           runs["b"]["reqs"])
+    vs_d = compare_streams("serve_paged (d) vs (b)", runs["d"]["reqs"],
+                           runs["b"]["reqs"])
+    verify_block = check_verify_block(cold, cfg, prompts[:cfg.num_slots],
+                                      runs["b"]["reqs"][:cfg.num_slots],
+                                      PAGED_SPEC_K)
+    lengths = np.array([len(p) for p in prompts[:cfg.num_slots]])
+    tokens = PAGED_REQUESTS * PAGED_NEW
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["a"]["launches"]}
+    emit("serve_paged", requests=PAGED_REQUESTS, new_tokens=PAGED_NEW,
+         shared_prefix_len=PAGED_SHARED_LEN, shared_prompts=n_shared,
+         prompt_lens=[len(p) for p in prompts], page_size=PAGE_SIZE,
+         cache_pages=PAGED_CACHE_PAGES, pool_bytes=pool_bytes,
+         max_memory_allocated={k: r["peak"] for k, r in runs.items()},
+         calls={k: r["calls"] for k, r in runs.items()},
+         launches_by_run={k: r["launches"] for k, r in runs.items()},
+         prefix_hits=a["prefix_hits"],
+         prefix_hit_tokens=a["prefix_hit_tokens"],
+         prefix_hit_rate=a["prefix_hit_rate"], shared_pages_unchanged=True,
+         ttft_ms={k: [r["stats"]["ttft_p50_ms"], r["stats"]["ttft_p99_ms"]]
+                  for k, r in runs.items()},
+         token_ms={k: [r["stats"]["token_p50_ms"],
+                       r["stats"]["token_p99_ms"]] for k, r in runs.items()},
+         tokens_per_s={k: tokens / r["wall"] for k, r in runs.items()},
+         spec=dict(spec_k=PAGED_SPEC_K, token_p50_ms=c["token_p50_ms"],
+                   token_p99_ms=c["token_p99_ms"],
+                   prefix_hit_rate=c["prefix_hit_rate"],
+                   spec_accept_rate=c["spec_accept_rate"],
+                   steps=c["steps"], steps_without=a["steps"]),
+         a_vs_b=vs_a, c_vs_b=vs_c, d_vs_b=vs_d, verify_block=verify_block,
+         decode_gather_scatter=_gather_scatter_ms(backend, lengths),
+         seconds=time.monotonic() - t_phase)
     return launches
+
+
+def phase_router(chat_model) -> dict:
+    """Two 162M models behind one ``Router`` on the card: ``chat`` on the
+    paged backend (seed ``SEED``), ``code`` on the dense one (seed ``SEED +
+    1``)."""
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.serving.autoscale import AutoscaleConfig
+    from horovod_tpu_torch.serving.engine import (PagedTransformerBackend,
+                                                  ServingEngine,
+                                                  TransformerBackend)
+    from horovod_tpu_torch.serving.router import (ModelSpec, Router,
+                                                  RouterAutoscaler)
+
+    t_phase = time.monotonic()
+    cfg = _serve_config()
+    mcfg = chat_model.cfg
+    code_model = Transformer(mcfg, device="cuda")
+    code_model.load_state_dict(init_params(mcfg, SEED + 1))
+    chat = PagedTransformerBackend(chat_model, cfg.num_slots,
+                                   cfg.max_seq_len,
+                                   cache_pages=PAGED_CACHE_PAGES,
+                                   page_size=PAGE_SIZE)
+    code = TransformerBackend(code_model, cfg.num_slots, cfg.max_seq_len)
+    for backend in (chat, code):            # first cuBLAS calls
+        warm = ServingEngine(backend, cfg)
+        warm.submit(list(range(1, 101)), 2)
+        warm.run_until_idle()
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = {m: [list(map(int, rng.integers(1, mcfg.vocab_size, size=n)))
+                   for n in rng.integers(100, 401, size=ROUTER_REQUESTS)]
+               for m in ("chat", "code")}
+    specs = [ModelSpec(m, slo_ttft_ms=ROUTER_SLO_MS) for m in prompts]
+    engines = {m: ServingEngine(be, cfg, tick_name=f"serving.tick.{m}")
+               for m, be in (("chat", chat), ("code", code))}
+    router = Router()
+    for spec in specs:
+        router.add_model(spec, [engines[spec.name]])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    reqs = {m: [router.submit(m, p, ROUTER_NEW) for p in ps]
+            for m, ps in prompts.items()}
+    done = router.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launches()
+    for m in prompts:
+        if {id(r) for r in done.get(m, ())} != {id(r) for r in reqs[m]}                 or any(len(r.tokens) != ROUTER_NEW for r in reqs[m]):
+            raise AssertionError(f"router: not every {m} request completed "
+                                 f"on its model with {ROUTER_NEW} tokens")
+    calls = {m: e.counters["admitted"] + e.counters["steps"]
+             for m, e in engines.items()}
+    code_prefills = engines["code"].counters["admitted"]
+    if launches["flash_fwd"] != code_prefills * mcfg.num_layers:
+        raise AssertionError(f"router: flash launches {launches['flash_fwd']}"
+                             f" != code's prefills {code_prefills} x "
+                             f"{mcfg.num_layers}")
+    norms = 2 * mcfg.num_layers + 1
+    if launches["rmsnorm_fwd"] < norms * sum(calls.values()):
+        raise AssertionError(f"router: rmsnorm launches "
+                             f"{launches['rmsnorm_fwd']} < {norms} x {calls}")
+    stats = router.stats()
+    verdict = RouterAutoscaler(specs, budget=len(specs),
+                               config=AutoscaleConfig.from_env()).decide(
+                                   router)
+
+    alone = []
+    for p in prompts["chat"]:
+        eng = ServingEngine(chat, cfg)
+        alone.append(eng.submit(p, ROUTER_NEW))
+        eng.run_until_idle()
+    vs_alone = compare_streams("router chat vs alone", reqs["chat"], alone)
+    emit("router", models={m: f"162M, seed {SEED + i}, "
+                           f"{type(engines[m].backend).__name__}"
+                           for i, m in enumerate(prompts)},
+         requests_per_model=ROUTER_REQUESTS, new_tokens=ROUTER_NEW,
+         prompt_lens={m: [len(p) for p in ps] for m, ps in prompts.items()},
+         tick_names={m: e.tick_name for m, e in engines.items()},
+         launches=launches, calls=calls, wall_s=wall, stats=stats,
+         autoscale_verdict=verdict, chat_vs_alone=vs_alone,
+         seconds=time.monotonic() - t_phase)
+    return launches
+
+
+@contextlib.contextmanager
+def record_norm_rows(seen: set):
+    """Add ``(dtype, rows, width)`` of every RMSNorm forward kernel
+    launch to ``seen``."""
+    from horovod_tpu_torch.ops import rmsnorm as rn
+
+    launch = rn._rms_norm_cuda
+
+    def recorded(x, scale, eps):
+        seen.add((x.dtype, x.numel() // x.shape[-1], x.shape[-1]))
+        return launch(x, scale, eps)
+
+    rn._rms_norm_cuda = recorded
+    try:
+        yield
+    finally:
+        rn._rms_norm_cuda = launch
+
+
+def check_norm_rows(seen: set) -> None:
+    """Every shape a main path gave the RMSNorm forward kernel is one
+    that ``phase_rmsnorm`` held against the plain version."""
+    checked = {(dt, n, 768) for dt, n in RMS_CASES}
+    unchecked = sorted((str(dt), n, e) for dt, n, e in seen - checked)
+    emit("rmsnorm_rows", main_paths=sorted((str(dt), n, e)
+                                           for dt, n, e in seen),
+         unchecked=unchecked)
+    if unchecked:
+        raise AssertionError(f"the RMSNorm forward ran at {unchecked}, "
+                             "which phase_rmsnorm does not check")
 
 
 @contextlib.contextmanager
@@ -845,7 +1343,7 @@ def _timed_steps(model, opt, tokens, accumulate: int = 1):
                for _ in range(tt.TIMED_STEPS)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / tt.TIMED_STEPS
-    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    launches = _launches()
     return ([float(x) for x in losses], step_s, launches,
             torch.cuda.max_memory_allocated())
 
@@ -1129,7 +1627,7 @@ def phase_resnet() -> None:
                    for _ in range(RESNET_STEPS)]
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / RESNET_STEPS
-        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        launches = _launches()
         peak = torch.cuda.max_memory_allocated()
         losses = [float(v) for v in losses]
         plan = overlap_plan()
@@ -1171,16 +1669,25 @@ def main() -> int:
     dq, dkv = phase_flash_bwd()
     rms = phase_rmsnorm()
     rms_bwd = phase_rmsnorm_bwd()
-    serve_launches = phase_serve()
-    if not (serve_launches["flash_fwd"] and serve_launches["rmsnorm_fwd"]):
-        raise AssertionError("the serve run launched no forward kernel")
-    # Launches on the training path: the 162M run; each phase counts its
-    # own run.
-    train = phase_train()
-    launches = train["launches"]
-    phase_train_mixed(train)
-    phase_train_remat(train)
-    phase_train_accumulate()
+    norm_rows = set()
+    with record_norm_rows(norm_rows):
+        serve_launches, serve_model = phase_serve()
+        if not (serve_launches["flash_fwd"]
+                and serve_launches["rmsnorm_fwd"]):
+            raise AssertionError("the serve run launched no forward kernel")
+        paged_launches = phase_serve_paged(serve_model)
+        router_launches = phase_router(serve_model)
+        del serve_model
+        train = phase_train()
+        phase_train_mixed(train)
+        phase_train_remat(train)
+        phase_train_accumulate()
+    check_norm_rows(norm_rows)
+    # Launches on the path: the serve, serve_paged (a-d), router and 162M
+    # train runs, each counted from 0 around its own run.
+    runs = {"serve": serve_launches, "serve_paged": paged_launches,
+            "router": router_launches, "train": train["launches"]}
+    launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
     entries = []
     tensor_cores, cuda_cores = "tensor cores (wgmma)", "CUDA cores"
@@ -1215,6 +1722,7 @@ def main() -> int:
             "name": name, "route": "cuda", "form": form, "design": design,
             "source": f"horovod_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
+            "launches_by_run": {run: r[name] for run, r in runs.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

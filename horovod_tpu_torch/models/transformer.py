@@ -14,6 +14,9 @@ also returns the per-layer K/V as ``[L, B, S, H, D]``, and ``kv_cache=(k, v)``
 with ``lengths`` for a decode, verify or suffix step over a preallocated
 per-slot cache.  Unlike the JAX package, which returns updated copies, the
 port writes the new K/V into the cache tensors in place and returns them.
+:func:`init_kv_cache` allocates the dense per-slot cache and
+:func:`init_kv_pages` the page pool of the paged serving backend, which
+gathers pages into the same dense layout before each cache step.
 
 ``remat=True`` rematerialises each block in the backward pass, as the JAX
 package's ``nn.remat(Block)`` does: the training forward runs every block
@@ -24,8 +27,7 @@ verify and ``return_kv`` calls never rematerialise.  With
 dtype and ``_linear``'s cast is a no-op (train them with
 ``training.master_weights``).
 
-Mixture-of-experts, context parallelism and the paged KV pool are not
-ported yet.
+Mixture-of-experts and context parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -112,6 +114,20 @@ def init_kv_cache(cfg: TransformerConfig, num_slots: int,
     otherwise."""
     s = max_len or cfg.max_seq_len
     shape = (cfg.num_layers, num_slots, s, cfg.num_heads, cfg.head_dim)
+    device = resolve_device(device)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def init_kv_pages(cfg: TransformerConfig, num_pages: int, page_size: int,
+                  device=None):
+    """KV page pool of the shared-prefix cache: two ``[L, pages, page_size,
+    H, D]`` zero tensors in the compute dtype, on ``cuda`` unless ``device``
+    says otherwise.  A slot is a row of page ids, and a page holding a
+    shared prompt-prefix chunk can appear in many slots' rows at once.
+    Page 0 is the scratch page inactive slots point at."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_heads,
+             cfg.head_dim)
     device = resolve_device(device)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))

@@ -8,11 +8,14 @@ through the continuous-batching engine, and prints one line
 
 Knobs, as in the JAX package: ``HVD_TPU_SERVE_BACKEND`` (``transformer``
 or ``stub``, the model-free token automaton), ``HVD_TPU_SERVE_QPS``,
-``HVD_TPU_SERVE_DURATION_S`` and the scheduler's ``HVD_TPU_SERVE_SLOTS`` /
-``_BUCKETS`` / ``_MAX_LEN`` / ``_SPEC_K``.  ``--device`` picks the device
-(``cuda`` by default; ``cpu`` runs the plain PyTorch versions).  The fleet
-mode of the JAX package (control plane, elastic joins, autoscaling) is
-not ported yet.
+``HVD_TPU_SERVE_DURATION_S``, the scheduler's ``HVD_TPU_SERVE_SLOTS`` /
+``_BUCKETS`` / ``_MAX_LEN`` and the fast paths' ``HVD_TPU_SERVE_PREFIX_PAGES``
+/ ``_PAGE_TOKENS`` (with prefix pages set, the model is served on the paged
+KV pool, :class:`PagedTransformerBackend`) / ``_SPEC_K``.  ``--device``
+picks the device (``cuda`` by default; ``cpu`` runs the plain PyTorch
+versions).  The fleet mode of the JAX package (a replica per rank on the
+native control plane, elastic joins, weights pulled over the data plane)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import os
 import sys
 
 from horovod_tpu_torch.serving import loadgen
-from horovod_tpu_torch.serving.engine import (ServingConfig, ServingEngine,
+from horovod_tpu_torch.serving.engine import (PagedTransformerBackend,
+                                              ServingConfig, ServingEngine,
                                               StubBackend,
                                               TransformerBackend)
 from horovod_tpu_torch.utils import env as env_knobs
@@ -32,8 +36,9 @@ from horovod_tpu_torch.utils.device import resolve_device
 
 def make_backend(cfg: ServingConfig, device=None, seed: int = 0):
     """The replica's backend: the stub under ``HVD_TPU_SERVE_BACKEND=stub``,
-    else the 162M decoder with seeded weights on ``device``.  Returns
-    ``(backend, vocab_size)``."""
+    else the 162M decoder with seeded weights on ``device``, on the paged
+    KV pool when ``cfg.prefix_cache_pages`` is set.  Returns ``(backend,
+    vocab_size)``."""
     if os.environ.get("HVD_TPU_SERVE_BACKEND", "transformer") == "stub":
         return StubBackend(cfg.num_slots), 256
     from horovod_tpu_torch.models.convert import init_params
@@ -43,6 +48,11 @@ def make_backend(cfg: ServingConfig, device=None, seed: int = 0):
     mcfg = config_162m(max_seq_len=cfg.max_seq_len)
     model = Transformer(mcfg, device=dev)
     model.load_state_dict(init_params(mcfg, seed))
+    if cfg.prefix_cache_pages > 0:
+        return PagedTransformerBackend(
+            model, cfg.num_slots, cfg.max_seq_len,
+            cache_pages=cfg.prefix_cache_pages,
+            page_size=cfg.page_size), mcfg.vocab_size
     return TransformerBackend(model, cfg.num_slots, cfg.max_seq_len), \
         mcfg.vocab_size
 

@@ -17,12 +17,15 @@ Backends:
   over all slots.  Every backend op is batch-row-independent, so a
   sequence's logits in a mixed batch equal the same sequence decoded
   alone through the same-shaped step.
+* :class:`PagedTransformerBackend` reads K/V through per-slot page tables
+  over a page pool, which lets admissions attach to shared prompt-prefix
+  pages (``prefix_cache.py``) and prefill only their suffix.
 * :class:`StubBackend` is the numpy token automaton of the JAX package.
 
-Shared-prefix reuse (``ServingConfig.prefix_cache_pages``) and greedy
-speculative decoding (``ServingConfig.spec_k``) compose on top as in the
-JAX package.  Not ported yet: the paged KV backend and the fleet
-``collective=`` tick.
+Shared-prefix reuse (any paged backend, or ``prefix_cache_pages`` on the
+stub) and greedy speculative decoding (``ServingConfig.spec_k``) compose
+on top as in the JAX package.  Not ported yet: the fleet ``collective=``
+tick (``_tick_collective``), which needs the native control plane.
 """
 
 from __future__ import annotations
@@ -102,7 +105,8 @@ class ServingConfig:
     # Keep per-step logits on each request (tests only — unbounded).
     record_logits: bool = False
     # Shared-prefix reuse: pages of slack beyond the slots' own working
-    # set; 0 disables it.  Taken by backends with ``prefill_prefixed``.
+    # set; 0 disables it for the stub (a paged backend brings its own
+    # pool and always runs with the cache on).
     prefix_cache_pages: int = 0
     page_size: int = 16
     # Speculative decoding draft window; 0 disables speculation.
@@ -194,33 +198,21 @@ class StubBackend:
         return preds, logits
 
 
-class TransformerBackend:
-    """The PyTorch :class:`Transformer` on its KV-cache path.
+class _ModelBackend:
+    """What the two model backends share: the model, host-to-device token
+    transfer, the host-side bounds check of every cache write, greedy
+    decode and verify over :meth:`_cache_step`, and the weight hot-swap.
 
-    The per-slot cache is two ``[L, slots, max_seq_len, H, D]`` tensors on
-    the model's device, allocated once.  A prefill runs the full forward
-    over the admitted prompt's bucket with ``return_kv=True`` and copies
-    its K/V into the slot; a decode runs one cache step over every slot,
-    whatever the active set is (inactive slots decode garbage at position
-    0, which the engine ignores and the next prefill overwrites).  Sampling
-    is greedy.  Everything runs under ``torch.inference_mode``: the
-    kernels have no backward yet.
-
-    The cache is written in place.  ``jax.lax.dynamic_update_slice``
-    clamps a start that would overflow the cache; a tensor write does not,
-    so every step checks on the host that its block fits and raises
-    otherwise (the engine never asks for one that does not: it evicts a
-    sequence at ``max_seq_len`` and speculates only with room).
-    """
+    ``jax.lax.dynamic_update_slice`` clamps a start that would overflow the
+    cache; a tensor write does not, so every step checks on the host that
+    its block fits and raises otherwise (the engine never asks for one that
+    does not: it evicts a sequence at ``max_seq_len`` and speculates only
+    with room)."""
 
     def __init__(self, model, num_slots: int, max_seq_len: int):
-        from horovod_tpu_torch.models.transformer import init_kv_cache
-
         self.model = model
         self.num_slots, self.max_seq_len = num_slots, max_seq_len
         self.device = next(model.parameters()).device
-        self.kk, self.vv = init_kv_cache(model.cfg, num_slots, max_seq_len,
-                                         device=self.device)
 
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -231,18 +223,6 @@ class TransformerBackend:
                 f"KV write of {block} positions at {start} overflows the "
                 f"{self.max_seq_len}-position slot")
 
-    def prefill(self, padded: np.ndarray, length: int, slot: int):
-        self._check_fits(0, padded.shape[1])
-        with torch.inference_mode():
-            logits, (pk, pv) = self.model(self._tokens(padded),
-                                          return_kv=True)
-            s = padded.shape[1]
-            self.kk[:, slot, :s] = pk[:, 0]
-            self.vv[:, slot, :s] = pv[:, 0]
-            last = logits[0, length - 1]
-            first = int(torch.argmax(last))
-            return first, last.float().cpu().numpy()
-
     def _cache_step(self, tok_block: np.ndarray, lengths: np.ndarray):
         # The engine's lengths count the pending (not yet cached) token;
         # the model wants the incoming token's position = cache fill
@@ -250,9 +230,8 @@ class TransformerBackend:
         w = np.maximum(np.asarray(lengths, np.int64) - 1, 0)
         self._check_fits(int(w.max()), tok_block.shape[1])
         with torch.inference_mode():
-            logits, _ = self.model(self._tokens(tok_block),
-                                   kv_cache=(self.kk, self.vv),
-                                   lengths=self._tokens(w))
+            logits = self._run_cached(self._tokens(tok_block),
+                                      self._tokens(w))
             preds = torch.argmax(logits, dim=-1).to(torch.int32)
             return preds.cpu().numpy(), logits.float().cpu().numpy()
 
@@ -272,29 +251,198 @@ class TransformerBackend:
         self.model.load_state_dict(state_dict)
 
 
+class TransformerBackend(_ModelBackend):
+    """The PyTorch :class:`Transformer` on its KV-cache path.
+
+    The per-slot cache is two ``[L, slots, max_seq_len, H, D]`` tensors on
+    the model's device, allocated once.  A prefill runs the full forward
+    over the admitted prompt's bucket with ``return_kv=True`` and copies
+    its K/V into the slot; a decode runs one cache step over every slot,
+    whatever the active set is (inactive slots decode garbage at position
+    0, which the engine ignores and the next prefill overwrites).  Sampling
+    is greedy.  Everything runs under ``torch.inference_mode``: the
+    kernels have no backward yet.  The cache is written in place.
+    """
+
+    def __init__(self, model, num_slots: int, max_seq_len: int):
+        from horovod_tpu_torch.models.transformer import init_kv_cache
+
+        super().__init__(model, num_slots, max_seq_len)
+        self.kk, self.vv = init_kv_cache(model.cfg, num_slots, max_seq_len,
+                                         device=self.device)
+
+    def prefill(self, padded: np.ndarray, length: int, slot: int):
+        self._check_fits(0, padded.shape[1])
+        with torch.inference_mode():
+            logits, (pk, pv) = self.model(self._tokens(padded),
+                                          return_kv=True)
+            s = padded.shape[1]
+            self.kk[:, slot, :s] = pk[:, 0]
+            self.vv[:, slot, :s] = pv[:, 0]
+            last = logits[0, length - 1]
+            first = int(torch.argmax(last))
+            return first, last.float().cpu().numpy()
+
+    def _run_cached(self, tokens: torch.Tensor, start: torch.Tensor):
+        logits, _ = self.model(tokens, kv_cache=(self.kk, self.vv),
+                               lengths=start)
+        return logits
+
+
+class PagedTransformerBackend(_ModelBackend):
+    """:class:`TransformerBackend` reading K/V through per-slot page tables.
+
+    The pool is two ``[L, pages, page_size, H, D]`` tensors
+    (:func:`~horovod_tpu_torch.models.transformer.init_kv_pages`) and a
+    slot is a row of page ids, so a page holding a shared prompt-prefix
+    chunk can appear in many slots' rows at once.  Every call gathers the
+    rows it runs into the dense ``[L, B, S, H, D]`` layout of
+    :class:`TransformerBackend`, runs the same model code on its cache path
+    (which writes the block in place), then scatters the written positions
+    back into their pages: paging changes memory layout, never arithmetic.
+    Only the written positions go back, so no admission writes a shared
+    prefix page (the JAX package scatters the whole row, its shared pages
+    with the values they already hold).
+
+    Every prefill, cold or prefix-attached, enters through the cache path
+    at position ``prefix_len``, as in the JAX package: the causal mask
+    exposes the cached prefix pages plus earlier block rows, the context a
+    cold full-prompt prefill gives each position.  So the paged path runs
+    the plain cache attention and the RMSNorm kernel, never the flash
+    kernel.
+
+    Shapes are fixed: the page tables are one ``[slots, pages_per_slot]``
+    tensor on the pool's device, updated in place by :meth:`attach_slot`
+    and :meth:`release_slot` (a detached row points at the scratch page
+    0), and the gather and scatter indices are computed on the device from
+    ``lengths``, so decode and verify each have one shape whatever the mix
+    of admissions.  The gather and scatter run inside ``record_function``
+    spans ``paged_gather`` and ``paged_scatter``, which the breakdown
+    reads.  Page-id bookkeeping (allocation, refcounts, trie) is
+    :class:`~horovod_tpu_torch.serving.prefix_cache.PrefixCache`'s; the
+    engine feeds admissions' page rows in through :meth:`attach_slot`.
+    """
+
+    paged = True
+
+    def __init__(self, model, num_slots: int, max_seq_len: int,
+                 cache_pages: int = 0, page_size: int = 16):
+        from horovod_tpu_torch.models.transformer import init_kv_pages
+
+        if max_seq_len % page_size:
+            raise ValueError("max_seq_len must be a multiple of page_size")
+        super().__init__(model, num_slots, max_seq_len)
+        self.page_size = page_size
+        self.pages_per_slot = max_seq_len // page_size
+        self.cache_pages = cache_pages
+        num_pages = 1 + num_slots * self.pages_per_slot + cache_pages
+        self.pk, self.pv = init_kv_pages(model.cfg, num_pages, page_size,
+                                         device=self.device)
+        # Row s: the pages slot s reads and writes, in sequence order.
+        self.page_tables = torch.zeros((num_slots, self.pages_per_slot),
+                                       dtype=torch.int64, device=self.device)
+
+    # -- page-table plumbing ------------------------------------------
+
+    def attach_slot(self, slot: int, page_row) -> None:
+        self.page_tables[slot] = self._tokens(page_row)
+
+    def release_slot(self, slot: int) -> None:
+        self.page_tables[slot] = 0
+
+    def _gather(self, tables: torch.Tensor):
+        """Pages -> dense ``[L, B, S, H, D]`` copies for the model's cache
+        path: exactly what a dense per-slot cache would hold."""
+        if tables.device != self.pk.device:
+            raise RuntimeError(f"page tables on {tables.device} cannot "
+                               f"index a pool on {self.pk.device}")
+        ell, _, ps, h, d = self.pk.shape
+        b, p = tables.shape
+        with torch.profiler.record_function("paged_gather"):
+            idx = tables.reshape(-1)
+            return (self.pk.index_select(1, idx).view(ell, b, p * ps, h, d),
+                    self.pv.index_select(1, idx).view(ell, b, p * ps, h, d))
+
+    def _scatter(self, tables, kd, vd, start, n: int) -> None:
+        """Positions ``start[b] .. start[b] + n`` of each dense row back
+        into their pages."""
+        with torch.profiler.record_function("paged_scatter"):
+            offs = start[:, None] + torch.arange(n, device=start.device)
+            rows = torch.arange(tables.shape[0], device=start.device)[:, None]
+            pidx = tables.gather(1, offs // self.page_size)
+            poff = offs % self.page_size
+            self.pk[:, pidx, poff] = kd[:, rows, offs]
+            self.pv[:, pidx, poff] = vd[:, rows, offs]
+
+    def _run(self, tables, tokens, start):
+        kd, vd = self._gather(tables)
+        logits, _ = self.model(tokens, kv_cache=(kd, vd), lengths=start)
+        self._scatter(tables, kd, vd, start, tokens.shape[1])
+        return logits
+
+    def _run_cached(self, tokens: torch.Tensor, start: torch.Tensor):
+        return self._run(self.page_tables, tokens, start)
+
+    # -- backend interface --------------------------------------------
+
+    def prefill(self, padded: np.ndarray, length: int, slot: int):
+        return self.prefill_prefixed(padded, length, slot, 0)
+
+    def prefill_prefixed(self, padded: np.ndarray, suffix_len: int,
+                         slot: int, prefix_len: int, prompt=None):
+        """Prefill the suffix block at position ``prefix_len`` of the
+        slot's row, whose first ``prefix_len // page_size`` pages already
+        hold the prefix's K/V."""
+        self._check_fits(prefix_len, padded.shape[1])
+        with torch.inference_mode():
+            logits = self._run(self.page_tables[slot:slot + 1],
+                               self._tokens(padded),
+                               self._tokens([prefix_len]))
+            last = logits[0] if padded.shape[1] == 1 else \
+                logits[0, suffix_len - 1]
+            first = int(torch.argmax(last))
+            return first, last.float().cpu().numpy()
+
+
 class ServingEngine:
     """The continuous-batching scheduler.
 
     Each :meth:`step` (i) admits queued requests into free slots —
     prefill produces the first token, so TTFT is measured here — then
     (ii) runs one decode over all slots and (iii) evicts finished or
-    over-length sequences, freeing their slots for the next tick."""
+    over-length sequences, freeing their slots for the next tick.
+
+    ``tick_name`` is the name of the engine's fixed-name tick collective
+    (default :attr:`TICK_NAME`), distinct per model when several engines
+    share one control plane, as the router's do.  Nothing in the port
+    reads it yet: it is kept for parity with the JAX engine, and the tick
+    that uses it (the JAX engine's ``collective=``) waits for the port of
+    the native control plane."""
+
+    TICK_NAME = "serving.tick"
 
     def __init__(self, backend, config: ServingConfig | None = None,
                  clock: Callable[[], float] = time.monotonic,
-                 on_complete: Callable[[Request], None] | None = None):
+                 on_complete: Callable[[Request], None] | None = None,
+                 tick_name: str | None = None):
         global _ACTIVE
         self.backend = backend
         self.config = config or ServingConfig()
         self.clock = clock
         self.on_complete = on_complete
+        self.tick_name = tick_name or self.TICK_NAME
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * self.config.num_slots
         self.last_tokens = np.zeros(self.config.num_slots, np.int32)
         self.lengths = np.zeros(self.config.num_slots, np.int32)
         cfg = self.config
+        # A paged backend brings its own pool dimensions; the stub opts in
+        # through prefix_cache_pages (its pages are notional).
         self.prefix: PrefixCache | None = None
-        if cfg.prefix_cache_pages > 0 and \
+        if getattr(backend, "paged", False):
+            self.prefix = PrefixCache(cfg.num_slots, backend.pages_per_slot,
+                                      backend.cache_pages, backend.page_size)
+        elif cfg.prefix_cache_pages > 0 and \
                 hasattr(backend, "prefill_prefixed"):
             if cfg.max_seq_len % cfg.page_size:
                 raise ValueError(
@@ -381,8 +529,10 @@ class ServingEngine:
                 while hit and hit + self._bucket(len(req.prompt) - hit) \
                         > cfg.max_seq_len:
                     hit -= self.prefix.page_size
-                hit = self.prefix.admit(s, req.prompt,
-                                        max_prefix_len=hit).prefix_len
+                adm = self.prefix.admit(s, req.prompt, max_prefix_len=hit)
+                hit = adm.prefix_len
+                if getattr(self.backend, "paged", False):
+                    self.backend.attach_slot(s, adm.page_row)
             suffix = req.prompt[hit:]
             bucket = self._bucket(len(suffix))
             padded = np.zeros((1, bucket), np.int32)
@@ -490,6 +640,8 @@ class ServingEngine:
         self.lengths[slot] = 0
         if self.prefix is not None:
             self.prefix.release(slot)
+        if getattr(self.backend, "paged", False):
+            self.backend.release_slot(slot)
         self.counters["evicted"] += 1
         self.counters["completed"] += 1
         done.append(req)

@@ -38,8 +38,7 @@ leaves always cover a worst-case admission.
 The cache is a *logical* allocator: it hands out integer page ids and
 tracks sharing, while the arrays those ids index live in a paged backend
 — or nowhere at all for the StubBackend, which uses the same admission
-bookkeeping to model TTFT savings without materialising KV.  The port has
-no paged KV backend yet, so only the StubBackend drives it for now.
+bookkeeping to model TTFT savings without materialising KV.
 
 Own copy of ``horovod_tpu/serving/prefix_cache.py``: pure Python, kept
 identical so the two engines admit the same way.

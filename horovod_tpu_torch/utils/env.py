@@ -143,6 +143,40 @@ def serve_max_len() -> int:
     return _serve_number("SERVE_MAX_LEN", 256, int, floor=2)
 
 
+def serve_queue_high() -> float:
+    """``HVD_TPU_SERVE_QUEUE_HIGH`` — autoscaler GROW threshold in queued
+    requests per replica (default 16)."""
+    return _serve_number("SERVE_QUEUE_HIGH", 16.0, float, floor=0.0)
+
+
+def serve_p99_ms() -> float:
+    """``HVD_TPU_SERVE_P99_MS`` — autoscaler GROW threshold on p99 TTFT
+    in ms (default 500; 0 disables the latency trigger)."""
+    return _serve_number("SERVE_P99_MS", 500.0, float, floor=0.0)
+
+
+def serve_idle_s() -> float:
+    """``HVD_TPU_SERVE_IDLE_S`` — idle seconds before the autoscaler
+    SHRINKs (default 5)."""
+    return _serve_number("SERVE_IDLE_S", 5.0, float, floor=0.0)
+
+
+def serve_min_replicas() -> int:
+    """``HVD_TPU_SERVE_MIN_REPLICAS`` — autoscaler floor (default 1)."""
+    return _serve_number("SERVE_MIN_REPLICAS", 1, int, floor=1)
+
+
+def serve_max_replicas() -> int:
+    """``HVD_TPU_SERVE_MAX_REPLICAS`` — autoscaler ceiling (default 8)."""
+    return _serve_number("SERVE_MAX_REPLICAS", 8, int, floor=1)
+
+
+def serve_cooldown_s() -> float:
+    """``HVD_TPU_SERVE_COOLDOWN_S`` — minimum seconds between autoscale
+    decisions (default 2)."""
+    return _serve_number("SERVE_COOLDOWN_S", 2.0, float, floor=0.0)
+
+
 def serve_prefix_pages() -> int:
     """``HVD_TPU_SERVE_PREFIX_PAGES`` — shared-prefix cache slack in
     pages (default 0 = off)."""
@@ -158,6 +192,12 @@ def serve_spec_k() -> int:
     """``HVD_TPU_SERVE_SPEC_K`` — speculative draft window (default 0 =
     off)."""
     return _serve_number("SERVE_SPEC_K", 0, int, floor=0)
+
+
+def serve_slo_ms() -> float:
+    """``HVD_TPU_SERVE_SLO_MS`` — default TTFT SLO in ms a routed model is
+    judged against (``serving/router.py`` ``ModelSpec``; default 100)."""
+    return _serve_number("SERVE_SLO_MS", 100.0, float, floor=0.0)
 
 
 def serve_qps() -> float:

@@ -14,7 +14,10 @@ CPU op open when it was launched (directly, or through the runtime call
 its "correlation" names), and the op's outermost enclosing op on its
 thread says where in the step it ran (an autograd node's
 ``evaluate_function``, the optimizer's step, or the forward's top-level
-op).  :func:`measure` reports the "other" kind of kernel by that pair.
+op).  :func:`measure` reports the "other" kind of kernel by that pair,
+the costliest copy kernel by that pair, and the device time of the
+kernels launched inside named ``record_function`` spans (the paged
+backend's ``paged_gather`` and ``paged_scatter``).
 """
 
 from __future__ import annotations
@@ -107,6 +110,31 @@ def ops_of_kernels(events) -> list[tuple[dict, str, str]]:
     return out
 
 
+def span_us(events, names) -> dict:
+    """``{name: device µs}`` of the kernels, copies and fills whose launch
+    (the runtime call their "correlation" names) falls inside a
+    ``record_function`` span of that name on the launching thread."""
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") in ("user_annotation", "cpu_op")
+             and e.get("name") in names]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = dict.fromkeys(names, 0.0)
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        r = launch.get(e.get("args", {}).get("correlation"))
+        if r is None:
+            continue
+        for s in spans:
+            if (s.get("pid"), s.get("tid")) == (r.get("pid"), r.get("tid")) \
+                    and s["ts"] <= r["ts"] <= s["ts"] + s["dur"]:
+                out[s["name"]] += e["dur"]
+                break
+    return out
+
+
 def busy_us(events) -> float:
     """Length of the union of the events' intervals."""
     total, end = 0.0, float("-inf")
@@ -143,9 +171,11 @@ def kernels_in_one_call(fn) -> list[str]:
     return names
 
 
-def measure(name: str, fn, calls: int, trace_dir: str) -> dict:
+def measure(name: str, fn, calls: int, trace_dir: str,
+            spans: tuple[str, ...] = ()) -> dict:
     """Wall per call without the profiler, then device time per call from
-    a profiled repeat of the same calls."""
+    a profiled repeat of the same calls; ``spans`` names the
+    ``record_function`` spans whose device time is reported apart."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -161,12 +191,16 @@ def measure(name: str, fn, calls: int, trace_dir: str) -> dict:
         torch.cuda.synchronize()
     path = os.path.join(trace_dir, f"{name}.trace.json")
     prof.export_chrome_trace(path)
-    attributed = ops_of_kernels(_events(path))
+    all_events = _events(path)
+    attributed = ops_of_kernels(all_events)
     events = [e for e, _, _ in attributed]
     by_kind, by_name = defaultdict(float), defaultdict(float)
     other = defaultdict(lambda: [0.0, 0.0])
     name_op = defaultdict(float)
+    copies = defaultdict(lambda: defaultdict(float))
     for e, op, root in attributed:
+        if "copy" in e["name"].lower() or e.get("cat") == "gpu_memcpy":
+            copies[e["name"]][f"{root} / {op}"] += e["dur"] / 1e3 / calls
         kind = kind_of(e["name"])
         by_kind[kind] += e["dur"] / 1e3 / calls
         by_name[e["name"][:80]] += e["dur"] / 1e3 / calls
@@ -181,6 +215,15 @@ def measure(name: str, fn, calls: int, trace_dir: str) -> dict:
     top_ops = {name: dict(sorted(((o, ms) for (n, o), ms in name_op.items()
                                   if n == name), key=lambda kv: -kv[1])[:4])
                for name, _ in top}
+    copy_name = max(copies, key=lambda n: sum(copies[n].values()),
+                    default=None)
+    largest_copy = None if copy_name is None else {
+        "kernel": copy_name, "ms": sum(copies[copy_name].values()),
+        # Device ms per call by "outermost op / op".
+        "by_op": dict(sorted(copies[copy_name].items(),
+                             key=lambda kv: -kv[1])[:6])}
+    span_ms = {k: v / 1e3 / calls
+               for k, v in span_us(all_events, spans).items()}
     return {"region": name, "calls": calls, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if events else "not measured",
             "device_idle_share": (1.0 - busy_ms / wall_ms) if events
@@ -191,4 +234,7 @@ def measure(name: str, fn, calls: int, trace_dir: str) -> dict:
             # For each of those: device ms per call by "outermost op / op".
             "top_kernels_by_op": top_ops,
             # "outermost op / op": [device ms, kernels] per call.
-            "other_by_op": {k: v for k, v in other_top}}
+            "other_by_op": {k: v for k, v in other_top},
+            "largest_copy": largest_copy,
+            # Device ms per call of the kernels launched in each span.
+            "span_ms": span_ms}

@@ -213,7 +213,15 @@ def test_stub_prefix_cache_same_completions_as_jax_engine():
     ("serve_prefix_pages", "SERVE_PREFIX_PAGES", "4"),
     ("serve_page_tokens", "SERVE_PAGE_TOKENS", "8"),
     ("serve_spec_k", "SERVE_SPEC_K", "2"), ("serve_qps", "SERVE_QPS", "7.5"),
-    ("serve_duration_s", "SERVE_DURATION_S", "")])
+    ("serve_duration_s", "SERVE_DURATION_S", ""),
+    ("serve_queue_high", "SERVE_QUEUE_HIGH", "4.5"),
+    ("serve_queue_high", "SERVE_QUEUE_HIGH", "-1"),
+    ("serve_p99_ms", "SERVE_P99_MS", "0"),
+    ("serve_idle_s", "SERVE_IDLE_S", "x"),
+    ("serve_min_replicas", "SERVE_MIN_REPLICAS", "0"),
+    ("serve_max_replicas", "SERVE_MAX_REPLICAS", "3"),
+    ("serve_cooldown_s", "SERVE_COOLDOWN_S", "0.5"),
+    ("serve_slo_ms", "SERVE_SLO_MS", "250")])
 def test_env_readers_match_jax(monkeypatch, fn, name, raw):
     monkeypatch.setenv("HVD_TPU_" + name, raw)
     results = []
