@@ -80,6 +80,24 @@ line each:
                  alone on a paged engine.  Prints per-model ``stats()``
                  (SLO attainment at a 1000 ms TTFT target) and one
                  ``RouterAutoscaler.decide`` verdict;
+   serve_fleet — fleet serving on the card: 2 founding replicas of
+                 ``python -m horovod_tpu_torch.serving`` (162M, seed 0,
+                 ``HVD_TPU_ELASTIC=1``, the soak's heartbeat settings),
+                 each ticking the ``serving.tick`` collective over the
+                 port's native engine while it serves a Poisson stream of
+                 4 requests/s for 6 s, and a joiner (seed 1) started 2 s
+                 later with ``HVD_TPU_ELASTIC_JOIN=1``, which pulls its
+                 ring neighbour's weights over the bulk data plane.
+                 Checks: every request of every replica completes; the
+                 joiner's tensor CRCs equal what the donor shipped; no
+                 disk read, the ``direct`` transport; a probe prompt
+                 served alone gives the same 16 greedy tokens on the
+                 joiner as on the donor; every replica launched the
+                 flash and RMSNorm forward kernels.  Prints each
+                 replica's tick host ms, TTFT and token gaps (beside
+                 ``serve``'s), tokens/s and peak memory, the clone's
+                 bytes and ms, and the joiner's wait for admission and
+                 time from admission to its first token;
 8. train       — the 162M training step of
                  ``python -m horovod_tpu_torch.train_transformer``
                  (``init`` on NCCL, ``DistributedOptimizer(AdamW)``, B=8,
@@ -113,8 +131,9 @@ line each:
                  with the form it runs in for bf16 inputs (the three flash
                  kernels on the tensor cores, the two RMSNorm kernels on
                  the CUDA cores) and a line on its design; ``launches`` is
-                 the sum over the serve, serve_paged (a-d), router and
-                 train runs, each counted from 0 around its own run
+                 the sum over the serve, serve_paged (a-d), router,
+                 serve_fleet (summed over its replicas' reports) and train
+                 runs, each counted from 0 around its own run
                  (``launches_by_run``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -130,6 +149,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -157,6 +177,12 @@ SEED = 0
 PAGED_SHARED_LEN, PAGED_REQUESTS, PAGED_NEW = 512, 16, 32
 PAGE_SIZE, PAGED_CACHE_PAGES, PAGED_SPEC_K = 16, 512, 4
 ROUTER_REQUESTS, ROUTER_NEW, ROUTER_SLO_MS = 8, 16, 1000.0
+# serve_fleet: 2 founding replicas and a joiner started 2 s after them,
+# each serving a Poisson stream of 4 requests/s for 6 s (prompts of 126,
+# 254 and 510 tokens); the probe is 16 greedy tokens; every replica must
+# report within 120 s.
+FLEET_FOUNDERS, FLEET_QPS, FLEET_DURATION_S = 2, 4.0, 6.0
+FLEET_JOIN_AFTER_S, FLEET_PROBE_TOKENS, FLEET_TIMEOUT_S = 2.0, 16, 120.0
 # (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
 # prefill buckets, S=1000 (masked edge tiles), a longer and a non-causal
 # row, a query block past its keys, the training step's shape, and one
@@ -771,7 +797,7 @@ def phase_serve() -> dict:
          tokens_per_s=rep["tokens_per_s"], wall_s=wall,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          plain_max_abs_dlogits=dlogits, plain_argmax_match=argmax_ok)
-    return launches, model
+    return launches, model, rep
 
 
 def _serve_config(**kw):
@@ -1180,6 +1206,114 @@ def phase_router(chat_model) -> dict:
          launches=launches, calls=calls, wall_s=wall, stats=stats,
          autoscale_verdict=verdict, chat_vs_alone=vs_alone,
          seconds=time.monotonic() - t_phase)
+    return launches
+
+
+def _fleet_replica(args, env, **extra):
+    from horovod_tpu_torch.serving.soak import Replica
+
+    return Replica([sys.executable, "-m", "horovod_tpu_torch.serving",
+                    "--probe", str(FLEET_PROBE_TOKENS), *args],
+                   {**env, **extra})
+
+
+def _serve_report(rep, timeout_s: float, fleet) -> dict:
+    line = rep.wait_line("SERVE_REPORT ", timeout_s)
+    if line is None or rep.proc.wait(timeout=timeout_s) != 0:
+        for r in fleet:
+            if r.proc.poll() is None:
+                r.proc.kill()
+        raise AssertionError("a fleet replica failed:\n" + "\n".join(
+            f"--- replica {i}, exit {r.proc.wait()}:\n"
+            + "\n".join(r.lines[-40:]) for i, r in enumerate(fleet)))
+    return json.loads(line.split(" ", 1)[1])
+
+
+def phase_serve_fleet(serve_rep: dict) -> dict:
+    """Fleet serving of the 162M decoder on the card: ``FLEET_FOUNDERS``
+    replicas of ``python -m horovod_tpu_torch.serving`` (seed ``SEED``),
+    each ticking the ``serving.tick`` collective over the port's native
+    engine, then a joiner (seed ``SEED + 1``) admitted mid-traffic, which
+    pulls its ring neighbour's weights over the bulk data plane.  Returns
+    the launches summed over every replica's serving run."""
+    from horovod_tpu_torch.serving.soak import FLEET_ENV, free_port
+
+    t_phase = time.monotonic()
+    env = {**os.environ, **FLEET_ENV, "PYTHONFAULTHANDLER": "1",
+           "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+           "HVD_TPU_COORDINATOR_PORT": str(free_port()),
+           "HVD_TPU_SERVE_SLOTS": "8",
+           "HVD_TPU_SERVE_BUCKETS": "128,256,512,1024",
+           "HVD_TPU_SERVE_MAX_LEN": "2048",
+           "HVD_TPU_SERVE_QPS": str(FLEET_QPS),
+           "HVD_TPU_SERVE_DURATION_S": str(FLEET_DURATION_S)}
+    n = FLEET_FOUNDERS
+    fleet = [_fleet_replica(["--seed", str(SEED)], env,
+                            JAX_PROCESS_ID=str(r), JAX_NUM_PROCESSES=str(n))
+             for r in range(n)]
+    try:
+        # The joiner builds its model while the founders build theirs and
+        # start serving, then knocks: it is admitted mid-traffic.
+        time.sleep(FLEET_JOIN_AFTER_S)
+        fleet.append(_fleet_replica(
+            ["--seed", str(SEED + 1)], env, JAX_PROCESS_ID=str(n),
+            JAX_NUM_PROCESSES=str(n + 1), HVD_TPU_ELASTIC_JOIN="1"))
+        reps = [_serve_report(r, FLEET_TIMEOUT_S, fleet) for r in fleet]
+    finally:
+        for r in fleet:
+            if r.proc.poll() is None:
+                r.proc.kill()
+    joiner = reps[-1]
+    donors = [r for r in reps if "shipped" in r]
+    if len(donors) != 1 or "pulled" not in joiner:
+        raise AssertionError("serve_fleet: no weight clone took place "
+                             f"({len(donors)} donors)")
+    donor, pulled = donors[0], joiner["pulled"]
+    shipped = donor["shipped"]
+    for r in reps:
+        if r["completed"] != r["offered"] or r["timed_out"] \
+                or r["rejected"]:
+            raise AssertionError(f"serve_fleet: rank {r['rank']} completed "
+                                 f"{r['completed']} of {r['offered']}")
+        if not (r["launches"]["flash_fwd"] and r["launches"]["rmsnorm_fwd"]):
+            raise AssertionError(f"serve_fleet: rank {r['rank']} launched "
+                                 f"no forward kernel: {r['launches']}")
+    if pulled["crcs"] != shipped["crcs"]:
+        bad = [k for k in shipped["crcs"]
+               if pulled["crcs"].get(k) != shipped["crcs"][k]]
+        raise AssertionError(f"serve_fleet: joiner's tensors differ from "
+                             f"the donor's: {bad[:5]}")
+    if pulled["disk_reads"] != 0 or \
+            (pulled["transport"], shipped["transport"]) != ("direct",) * 2:
+        raise AssertionError(f"serve_fleet: clone read the disk or left the "
+                             f"direct stream: {pulled}, {shipped}")
+    probes = {r["rank"]: r["probe"] for r in reps}
+    if joiner["probe"] != donor["probe"] or \
+            len(donor["probe"]) != FLEET_PROBE_TOKENS:
+        raise AssertionError(f"serve_fleet: probe streams differ: {probes}")
+    launches = {k: sum(r["launches"][k] for r in reps)
+                for k in reps[0]["launches"]}
+    lat = ("ttft_p50_ms", "ttft_p99_ms", "token_p50_ms", "token_p99_ms")
+    emit("serve_fleet", replicas=len(reps), founders=n,
+         qps_per_replica=FLEET_QPS, duration_s=FLEET_DURATION_S,
+         cycle_time_ms=2.0, serve={k: serve_rep[k] for k in lat},
+         per_rank={r["rank"]: {
+             "role": ("joiner" if r is joiner else "donor" if r is donor
+                      else "founder"),
+             **{k: r[k] for k in ("offered", "completed", "tokens",
+                                  "tokens_per_s", "steps", "ticks",
+                                  "tick_mean_ms", "tick_p99_ms", *lat,
+                                  "max_memory_allocated")},
+             "launches": r["launches"]} for r in reps},
+         ship_bytes=shipped["bytes"], ship_ms=shipped["ship_ms"],
+         pull_bytes=pulled["bytes"], pull_ms=pulled["pull_ms"],
+         transport=pulled["transport"], disk_reads=pulled["disk_reads"],
+         tensors=len(pulled["crcs"]),
+         admission_wait_ms=joiner["admission_wait_ms"],
+         join_to_first_token_ms=joiner.get("join_to_first_token_ms"),
+         probe_tokens=FLEET_PROBE_TOKENS, probes_equal=len(
+             {tuple(p) for p in probes.values()}) == 1,
+         launches=launches, seconds=time.monotonic() - t_phase)
     return launches
 
 
@@ -1671,22 +1805,25 @@ def main() -> int:
     rms_bwd = phase_rmsnorm_bwd()
     norm_rows = set()
     with record_norm_rows(norm_rows):
-        serve_launches, serve_model = phase_serve()
+        serve_launches, serve_model, serve_rep = phase_serve()
         if not (serve_launches["flash_fwd"]
                 and serve_launches["rmsnorm_fwd"]):
             raise AssertionError("the serve run launched no forward kernel")
         paged_launches = phase_serve_paged(serve_model)
         router_launches = phase_router(serve_model)
         del serve_model
+        fleet_launches = phase_serve_fleet(serve_rep)
         train = phase_train()
         phase_train_mixed(train)
         phase_train_remat(train)
         phase_train_accumulate()
     check_norm_rows(norm_rows)
-    # Launches on the path: the serve, serve_paged (a-d), router and 162M
-    # train runs, each counted from 0 around its own run.
+    # Launches on the path: the serve, serve_paged (a-d), router,
+    # serve_fleet (every replica's serving run) and 162M train runs, each
+    # counted from 0 around its own run.
     runs = {"serve": serve_launches, "serve_paged": paged_launches,
-            "router": router_launches, "train": train["launches"]}
+            "router": router_launches, "serve_fleet": fleet_launches,
+            "train": train["launches"]}
     launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
     entries = []

@@ -21,8 +21,12 @@ planner (``overlap_plan()``), ResNet and the MNIST models, and
 :func:`accumulate_gradients` in the 162M step, the rest of the collective
 surface (``prescale_factor``, ``average=``, :func:`alltoall`,
 :func:`allgather_object`, sparse gradients, the int8 wire with error
-feedback, ``init(ranks=...)``) and ``callbacks``.  Importing the package
-creates no process group; :func:`init` does.
+feedback, ``init(ranks=...)``) and ``callbacks``; the paged KV pool with
+shared-prefix reuse and speculation, the router (slice 8); and fleet
+serving (slice 9) on the port's own copy of the native control plane
+(``core/``: the C++ core, its ctypes shim), with ``dataplane``,
+``replication`` and ``elastic``.  Importing the package creates no
+process group; :func:`init` does.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""horovod_tpu_torch.serving — continuous-batching serving on one card.
+"""horovod_tpu_torch.serving — continuous-batching serving on one card,
+alone or as a fleet of replicas on the native control plane.
 
 * ``engine.py``       — ``ServingEngine`` scheduler, ``TransformerBackend``
   (the PyTorch model on its dense KV cache), ``PagedTransformerBackend``
@@ -7,9 +8,13 @@
 * ``prefix_cache.py`` — refcounted radix-trie KV page bookkeeping.
 * ``router.py``       — multi-model admission and the cross-model replica
   budget (``RouterAutoscaler``).
-* ``autoscale.py``    — the queue-depth / p99 replica-count policy.
+* ``autoscale.py``    — the queue-depth / p99 replica-count policy and the
+  weight clone over the bulk data plane.
 * ``loadgen.py``      — open-loop Poisson load generator and report.
-* ``__main__.py``     — ``python -m horovod_tpu_torch.serving``, one replica.
+* ``worker.py``       — one stub replica speaking a line protocol.
+* ``soak.py``         — the fleet's join / kill / hot-swap soak driver.
+* ``__main__.py``     — ``python -m horovod_tpu_torch.serving``, one
+  replica, alone or in a fleet.
 """
 
 from __future__ import annotations

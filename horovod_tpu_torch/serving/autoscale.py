@@ -1,24 +1,31 @@
-"""Replica-count autoscaling policy — counterpart of the policy half of
+"""Elastic autoscaling for the serving fleet — counterpart of
 ``horovod_tpu/serving/autoscale.py``.
 
-:class:`Autoscaler` is a pure decision function over the load a fleet
-sees (queue depth, p99 TTFT): GROW when the backlog per replica or the
-tail latency crosses its threshold, SHRINK after a sustained idle window,
-both rate-limited by a cooldown and clamped to ``[min_replicas,
-max_replicas]``.  The policy only *decides*; acting on a verdict (spawning
-or retiring a replica) is the supervisor's job, which keeps the policy
-deterministic and testable without processes.
-
-Not ported yet, with fleet serving and the native control plane: the
-AUTOSCALE timeline instants of ``collective=``, and the data-plane weight
-motion (``ship_weights``, ``pull_weights``, ``poll_weights``, which ride
-``replication.py``).
+* **Policy** (:class:`Autoscaler`) — a pure decision function over the
+  load a fleet sees (queue depth, p99 TTFT; in a fleet, the aggregates of
+  the ``serving.tick`` collective): GROW when the backlog per replica or
+  the tail latency crosses its threshold, SHRINK after a sustained idle
+  window, both rate-limited by a cooldown and clamped to
+  ``[min_replicas, max_replicas]``.  With ``collective=`` each verdict
+  also lands as an AUTOSCALE instant on the engine's timeline.  The
+  policy only *decides*; acting on a verdict (spawning or retiring a
+  replica) is the supervisor's job (``serving/soak.py``), which keeps the
+  policy deterministic and testable without processes.
+* **Weight motion** — a freshly joined replica pulls the model from a
+  ring neighbour's host memory over the bulk data plane instead of disk:
+  the donor ships one complete snapshot blob (:func:`ship_weights`, over
+  :func:`replication.ship_blob`), the joiner drains its shard inbox until
+  the blob is whole (:func:`pull_weights`).  The same path hot-swaps a
+  newer version into live replicas (:func:`poll_weights`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any
+
+from horovod_tpu_torch import replication
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +64,13 @@ class Autoscaler:
     Call :meth:`decide` once per serving tick with the current replica
     count and observed load; it returns ``"grow"``, ``"shrink"`` or
     ``None``, and appends each verdict to :attr:`decisions` as ``(time,
-    verdict, why)``."""
+    verdict, why)``; with a collective engine attached, each verdict also
+    lands as an AUTOSCALE timeline instant."""
 
     def __init__(self, config: AutoscaleConfig | None = None,
-                 clock=time.monotonic):
+                 collective=None, clock=time.monotonic):
         self.config = config or AutoscaleConfig()
+        self.collective = collective
         self.clock = clock
         self._last_decision_t = -1e9
         self._idle_since: float | None = None
@@ -91,4 +100,49 @@ class Autoscaler:
         self._last_decision_t = now
         self._idle_since = None
         self.decisions.append((now, verdict, why))
+        if self.collective is not None:
+            self.collective.timeline_instant(
+                "AUTOSCALE", f"{verdict} replicas={replicas} {why}")
         return verdict
+
+
+# -- data-plane weight motion ------------------------------------------------
+
+
+def ship_weights(eng, dst: int, version: int, state: Any,
+                 metadata: dict | None = None) -> str | None:
+    """Donor side: encode ``state`` (a tree of numpy arrays or torch
+    tensors, a ``state_dict`` say) and stream it to rank ``dst`` over the
+    bulk data plane (relay fallback).  Returns the transport used
+    ("direct"/"relay") or None when both paths failed."""
+    blob = replication.encode_snapshot(version, state, metadata)
+    return replication.ship_blob(eng, dst, version, blob)
+
+
+def pull_weights(eng, timeout_s: float = 30.0, min_version: int = 0,
+                 device=None) -> dict | None:
+    """Joiner side: drain the shard inbox until a complete snapshot at
+    ``version >= min_version`` lands, then decode it with its tensors on
+    ``device`` — host memory to host memory, no disk.  Returns ``{"step",
+    "state", "metadata"}`` or None on timeout."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        replication.drain(eng)
+        snap = replication.restore_local(eng.epoch, device)
+        if snap is not None and snap["step"] >= min_version:
+            return snap
+        time.sleep(0.02)
+    return None
+
+
+def poll_weights(eng, current_version: int, device=None) -> dict | None:
+    """Hot-swap poll, called between serving steps: absorb anything the
+    donor shipped and return a decoded snapshot strictly newer than
+    ``current_version``, else None.  Swapping is the caller's one-liner
+    (``backend.swap_params``): shapes don't change, in-flight sequences
+    keep their KV."""
+    replication.drain(eng)
+    snap = replication.restore_local(eng.epoch, device)
+    if snap is not None and snap["step"] > current_version:
+        return snap
+    return None

@@ -24,8 +24,14 @@ Backends:
 
 Shared-prefix reuse (any paged backend, or ``prefix_cache_pages`` on the
 stub) and greedy speculative decoding (``ServingConfig.spec_k``) compose
-on top as in the JAX package.  Not ported yet: the fleet ``collective=``
-tick (``_tick_collective``), which needs the native control plane.
+on top as in the JAX package.  With ``collective=`` (a
+:class:`~horovod_tpu_torch.core.engine.NativeEngine`) every step ends in
+the fleet tick, as in the JAX package: one fixed-name, fixed-shape
+allreduce of the replica's counters, which keeps the control plane's
+response cache warm, holds the replicas in step and gives each the fleet
+aggregate its autoscaler reads; admissions, rejections, prefix hits,
+accepted drafts and evictions land as ``SERVING_*`` instants on the
+engine's timeline.
 """
 
 from __future__ import annotations
@@ -412,22 +418,25 @@ class ServingEngine:
     (ii) runs one decode over all slots and (iii) evicts finished or
     over-length sequences, freeing their slots for the next tick.
 
-    ``tick_name`` is the name of the engine's fixed-name tick collective
-    (default :attr:`TICK_NAME`), distinct per model when several engines
-    share one control plane, as the router's do.  Nothing in the port
-    reads it yet: it is kept for parity with the JAX engine, and the tick
-    that uses it (the JAX engine's ``collective=``) waits for the port of
-    the native control plane."""
+    With ``collective=`` each step ends in :meth:`_tick_collective`: one
+    allreduce named ``tick_name`` (default :attr:`TICK_NAME`; distinct per
+    model when several engines share one control plane, as the router's
+    do) of a fixed 9-float vector.  Completions are delivered before it:
+    a membership change raises :class:`MembershipChanged` out of the tick,
+    and the step's completions are then parked in ``_undelivered`` and
+    handed over by the next step.  :meth:`tick_stats` gives the tick's
+    host time."""
 
     TICK_NAME = "serving.tick"
 
     def __init__(self, backend, config: ServingConfig | None = None,
-                 clock: Callable[[], float] = time.monotonic,
+                 collective=None, clock: Callable[[], float] = time.monotonic,
                  on_complete: Callable[[Request], None] | None = None,
                  tick_name: str | None = None):
         global _ACTIVE
         self.backend = backend
         self.config = config or ServingConfig()
+        self.collective = collective
         self.clock = clock
         self.on_complete = on_complete
         self.tick_name = tick_name or self.TICK_NAME
@@ -457,7 +466,16 @@ class ServingEngine:
              "prefix_hit_tokens", "spec_drafted", "spec_accepted"), 0)
         self._ttft_s: list[float] = []
         self._token_s: list[float] = []
+        self._tick_s: list[float] = []
         self._rid = itertools.count()
+        self.fleet: dict[str, float] = {}
+        # Set by drivers whose request stream is exhausted; rides the tick
+        # vector.  A replica keeps ticking until every replica has drained:
+        # one that stopped early would stall the others' tick.
+        self.done_flag = 0.0
+        # Completions of a step whose tick raised MembershipChanged,
+        # handed to the caller by the next successful step.
+        self._undelivered: list[Request] = []
         _ACTIVE = self
 
     # -- request intake ---------------------------------------------------
@@ -479,6 +497,12 @@ class ServingEngine:
                 f"(max_seq_len={self.config.max_seq_len}; raise with "
                 f"HVD_TPU_SERVE_MAX_LEN)")
             self.counters["rejected"] += 1
+            if self.collective is not None:
+                self.collective.timeline_instant(
+                    "SERVING_REJECT",
+                    f"req={req.rid} len={len(req.prompt)} "
+                    f"max_bucket={max(self.config.buckets)} "
+                    f"max_seq_len={self.config.max_seq_len}")
             return req
         self.queue.append(req)
         return req
@@ -508,9 +532,22 @@ class ServingEngine:
                     if req.state == "DONE":
                         self._evict(req, s, done)
         self.counters["steps"] += 1
+        # Deliver completions BEFORE the tick: enqueue / synchronize raise
+        # MembershipChanged on a reconfiguration, and a request already
+        # evicted from its slot but not yet reported would otherwise be a
+        # lost response.
         if self.on_complete:
             for req in done:
                 self.on_complete(req)
+        done = self._undelivered + done
+        self._undelivered = []
+        try:
+            self._tick_collective()
+        except BaseException:
+            # Aborted tick: the caller never sees this step's return
+            # value, so park the completions for the next step.
+            self._undelivered = done
+            raise
         return done
 
     def _admit(self, done: list[Request]) -> None:
@@ -553,6 +590,14 @@ class ServingEngine:
             if hit:
                 self.counters["prefix_hits"] += 1
                 self.counters["prefix_hit_tokens"] += hit
+            if self.collective is not None:
+                self.collective.timeline_instant(
+                    "SERVING_ADMIT", f"req={req.rid} slot={s} "
+                    f"len={len(req.prompt)} bucket={bucket}")
+                if hit:
+                    self.collective.timeline_instant(
+                        "SERVING_PREFIX_HIT", f"req={req.rid} slot={s} "
+                        f"tokens={hit} suffix={len(suffix)}")
             self._take_token(req, s, first, logits, now)
             if req.state == "DONE":  # max_new_tokens == 1
                 self._evict(req, s, done)
@@ -631,6 +676,10 @@ class ServingEngine:
                                  logits[s, taken], now)
             self.counters["spec_drafted"] += k
             self.counters["spec_accepted"] += taken
+            if self.collective is not None and taken:
+                self.collective.timeline_instant(
+                    "SERVING_SPEC_ACCEPT",
+                    f"req={req.rid} slot={s} accepted={taken}/{k}")
             if req.state == "DONE":
                 self._evict(req, s, done)
 
@@ -644,7 +693,31 @@ class ServingEngine:
             self.backend.release_slot(slot)
         self.counters["evicted"] += 1
         self.counters["completed"] += 1
+        if self.collective is not None:
+            self.collective.timeline_instant(
+                "SERVING_EVICT", f"req={req.rid} slot={slot} "
+                f"reason={req.finish_reason} new={len(req.tokens)}")
         done.append(req)
+
+    def _tick_collective(self) -> None:
+        if self.collective is None:
+            return
+        from horovod_tpu_torch.core.engine import OP_ALLREDUCE
+
+        t0 = time.monotonic()
+        c = self.counters
+        vec = np.array([self._active_count(), len(self.queue), c["admitted"],
+                        c["evicted"], c["completed"], c["tokens"], c["steps"],
+                        self._occupancy(), self.done_flag], np.float32)
+        # Fixed name + shape + dtype every tick: after the first step the
+        # signature is a response-cache hit, never renegotiated.
+        h = self.collective.enqueue(self.tick_name, vec, OP_ALLREDUCE)
+        agg = self.collective.synchronize(h)
+        self.fleet = dict(zip(("active", "queued", "admitted", "evicted",
+                               "completed", "tokens", "steps", "occupancy",
+                               "done_replicas"),
+                              (float(x) for x in agg)))
+        self._tick_s.append(time.monotonic() - t0)
 
     # -- draining & introspection -----------------------------------------
 
@@ -652,6 +725,8 @@ class ServingEngine:
         out: list[Request] = []
         for _ in range(max_steps):
             if not self.queue and self._active_count() == 0:
+                out.extend(self._undelivered)  # parked by an aborted tick
+                self._undelivered = []
                 return out
             out.extend(self.step())
         raise RuntimeError("serving engine did not drain "
@@ -688,6 +763,15 @@ class ServingEngine:
             "spec_accept_rate": (c["spec_accepted"]
                                  / max(c["spec_drafted"], 1)),
         }
+
+
+    def tick_stats(self) -> dict:
+        """Host time of the ``collective=`` tick: ``{"ticks", "tick_mean_ms",
+        "tick_p99_ms"}`` over every completed tick (zeros without one)."""
+        n = len(self._tick_s)
+        return {"ticks": n,
+                "tick_mean_ms": sum(self._tick_s) / n * 1e3 if n else 0.0,
+                "tick_p99_ms": _pctile(self._tick_s, 99) * 1e3}
 
 
 def serving_stats() -> dict:

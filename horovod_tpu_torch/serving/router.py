@@ -10,16 +10,18 @@ taking the seat of an idle one, not only by adding hardware.
 * A replica is a plain :class:`~horovod_tpu_torch.serving.engine.
   ServingEngine`; prefix cache and speculation compose per engine.
   Replicas share nothing in-process (separate KV pools).
+* Engines attached to a collective control plane must use distinct tick
+  names (``ServingEngine(tick_name=...)``, e.g. ``serving.tick.chat``), so
+  each model fleet keeps its own fixed-name, cache-warm allreduce.
 * The router only *decides* scale moves (:class:`RouterAutoscaler`
-  verdicts); acting on them — :meth:`Router.add_replica` /
+  verdicts, and with ``collective=`` AUTOSCALE timeline instants labelled
+  with the model); acting on them — :meth:`Router.add_replica` /
   :meth:`Router.remove_replica` for in-process fleets — is the
   supervisor's job.
 
 ``stats()`` reports per-model queue depth, occupancy, TTFT percentiles
 and SLO attainment (the fraction of completions whose TTFT met the
-model's ``slo_ttft_ms``).  Not ported yet, with fleet serving and the
-native control plane: the JAX router's ``collective=`` (its AUTOSCALE
-timeline instants).
+model's ``slo_ttft_ms``).
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ class ModelSpec:
 class Router:
     """Admission and scheduling across heterogeneous model fleets."""
 
-    def __init__(self, clock=time.monotonic):
+    def __init__(self, clock=time.monotonic, collective=None):
         self.clock = clock
+        self.collective = collective
         self._specs: dict[str, ModelSpec] = {}
         self._engines: dict[str, list[ServingEngine]] = {}
         self._slo_ok: dict[str, int] = defaultdict(int)
@@ -166,9 +169,10 @@ class RouterAutoscaler:
     verdicts pass through untouched."""
 
     def __init__(self, specs, budget: int,
-                 config: AutoscaleConfig | None = None,
+                 config: AutoscaleConfig | None = None, collective=None,
                  clock=time.monotonic):
         self.budget = budget
+        self.collective = collective
         self._policies = {
             s.name: Autoscaler(config or AutoscaleConfig(), clock=clock)
             for s in specs}
@@ -205,4 +209,10 @@ class RouterAutoscaler:
             # else: budget exhausted, nobody idle — the grow waits.
         out.extend((m, "shrink") for m in shrinks)
         self.decisions.extend(out)
+        if self.collective is not None:
+            for name, verdict in out:
+                self.collective.timeline_instant(
+                    "AUTOSCALE", f"model={name} {verdict} "
+                    f"replicas={stats[name]['replicas']} "
+                    f"budget={self.budget}")
         return out

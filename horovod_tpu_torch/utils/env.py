@@ -1,8 +1,9 @@
 """Environment knobs the port reads: tensor fusion, gradient overlap, the
-device headroom and ``HVD_TPU_SERVE_*``.
+device headroom, ``HVD_TPU_SERVE_*``, and those of the native core, its
+elastic membership and its bulk data plane.
 
-Own copy of the fusion, overlap, headroom and serving readers of
-``horovod_tpu/utils/env.py``, with the same names, defaults and parsing:
+Own copy of those readers of ``horovod_tpu/utils/env.py``, with the same
+names, defaults and parsing:
 each knob is looked up as ``HOROVOD_<name>`` first, then
 ``HVD_TPU_<name>``.  For the serving knobs, unset gives the default, and a
 malformed value gives the default with a warning — a bad knob never takes
@@ -209,3 +210,171 @@ def serve_qps() -> float:
 def serve_duration_s() -> float:
     """``HVD_TPU_SERVE_DURATION_S`` — workload duration (default 3)."""
     return _serve_number("SERVE_DURATION_S", 3.0, float, floor=0.01)
+
+
+# -- the native core (core/src) and its control plane ---------------------
+
+DEFAULT_CYCLE_TIME_MS = 5.0
+STALL_WARNING_TIME_SECONDS = 60.0
+
+
+def cycle_time_ms() -> float:
+    raw = _get("CYCLE_TIME")
+    return float(raw) if raw else DEFAULT_CYCLE_TIME_MS
+
+
+def timeline_path() -> str | None:
+    return _get("TIMELINE")
+
+
+DEFAULT_CACHE_CAPACITY = 1024
+
+
+def cache_capacity() -> int:
+    """``HOROVOD_CACHE_CAPACITY`` — response-cache entries (0 disables;
+    default 1024, upstream 0.16's default).  docs/response_cache.md."""
+    raw = _get("CACHE_CAPACITY")
+    return int(raw) if raw not in (None, "") else DEFAULT_CACHE_CAPACITY
+
+
+def stall_check_disabled() -> bool:
+    return _get("STALL_CHECK_DISABLE") is not None
+
+
+def stall_warning_seconds() -> float:
+    """Stall-warning window; reference hardcodes 60 s (operations.cc:253) —
+    exposed as a knob here mainly so tests can shrink it."""
+    raw = _get("STALL_WARNING_TIME")
+    return float(raw) if raw else STALL_WARNING_TIME_SECONDS
+
+
+# Restartable abort (EX_TEMPFAIL): the launcher's supervision treats this
+# exit as "transient, relaunch me" — the stall escalation and any rank that
+# wants an explicit restart use it.
+STALL_ABORT_EXIT_CODE = 75
+
+
+def stall_abort_seconds() -> float:
+    """Stall warn->abort escalation threshold; 0 (default) disables."""
+    raw = _get("STALL_ABORT_SECONDS")
+    return float(raw) if raw else 0.0
+
+
+def stall_abort_exit_code() -> int:
+    raw = _get("STALL_ABORT_EXIT_CODE")
+    return int(raw) if raw else STALL_ABORT_EXIT_CODE
+
+
+DEFAULT_ABORT_GRACE_MS = 1000.0
+
+
+def abort_grace_ms() -> float:
+    """Grace between a peer-failure abort and the restartable process exit
+    (``HVD_TPU_ABORT_GRACE_MS``; negative = report only, never exit)."""
+    raw = _get("ABORT_GRACE_MS")
+    return float(raw) if raw not in (None, "") else DEFAULT_ABORT_GRACE_MS
+
+
+def verify_schedule() -> bool:
+    """``HVD_TPU_VERIFY_SCHEDULE`` — debug-mode cross-rank schedule
+    verification (analysis/schedule.py): every submitted collective extends
+    a rolling hash the coordinator compares across ranks, turning a
+    divergent collective order into an immediate coordinated abort with a
+    structured report instead of a stall-timeout hang."""
+    raw = _get("VERIFY_SCHEDULE")
+    return bool(raw) and raw not in ("0", "false", "False")
+
+
+DEFAULT_VERIFY_INTERVAL_TICKS = 10
+
+
+def verify_interval_ticks() -> int:
+    """Coordinator ticks between cross-rank schedule checks
+    (``HVD_TPU_VERIFY_INTERVAL_TICKS``; default 10 — ~50 ms at the default
+    5 ms cycle, cheap enough to leave on for whole debug runs)."""
+    raw = _get("VERIFY_INTERVAL_TICKS")
+    return int(raw) if raw else DEFAULT_VERIFY_INTERVAL_TICKS
+
+
+DEFAULT_RECONFIG_TIMEOUT_MS = 30000.0
+
+
+def elastic_enabled() -> bool:
+    """``HVD_TPU_ELASTIC`` — in-place elastic recovery
+    (docs/fault_tolerance.md "In-place recovery"): when a non-coordinator
+    rank dies, survivors shrink to the new membership in the same process
+    (RECONFIG broadcast + engine re-form) instead of exiting 75 for a full
+    relaunch; the launcher's ``--elastic`` mode relaunches only the dead
+    rank, which rejoins via JOIN.  Coordinator death and shrinks below
+    ``HVD_TPU_MIN_SIZE`` keep the full-restart path.  Read natively in
+    core/src/c_api.cc."""
+    raw = _get("ELASTIC")
+    return bool(raw) and raw not in ("0", "false", "False")
+
+
+def reconfig_timeout_ms() -> float:
+    """``HVD_TPU_RECONFIG_TIMEOUT_MS`` — bound (default 30000) on the
+    whole in-place reconfiguration: an unacknowledged resize event, or a
+    re-rendezvous that cannot complete within it, falls back to
+    abort-and-restart so nothing blocks forever (the PR-4 guarantee)."""
+    raw = _get("RECONFIG_TIMEOUT_MS")
+    return float(raw) if raw not in (None, "") \
+        else DEFAULT_RECONFIG_TIMEOUT_MS
+
+
+def ckpt_replicate() -> bool:
+    """``HVD_TPU_CKPT_REPLICATE`` — peer-replicate each rank's snapshot to
+    a neighbor rank's host memory over the control plane (SHARD_PUT
+    frames), so an elastic restore can skip disk entirely when a replica
+    from the current membership epoch survives (replication.py)."""
+    raw = _get("CKPT_REPLICATE")
+    return bool(raw) and raw not in ("0", "false", "False")
+
+
+DEFAULT_BULK_CHUNK_BYTES = 1 << 20
+DEFAULT_BULK_TIMEOUT_MS = 5000.0
+DEFAULT_BULK_MAX_BYTES = 1 << 30
+
+
+def bulk_plane() -> bool:
+    """``HVD_TPU_BULK_PLANE`` — the rank-to-rank bulk data plane (default
+    ON).  When on, replication shard payloads stream directly between peer
+    bulk listeners under coordinator-issued tickets; the coordinator star
+    carries only the control frames.  Off: every transfer takes the legacy
+    SHARD_PUT relay through rank 0."""
+    raw = _get("BULK_PLANE")
+    return raw is None or raw not in ("0", "false", "False")
+
+
+def bulk_chunk_bytes() -> int:
+    """``HVD_TPU_BULK_CHUNK_BYTES`` — bulk-stream chunk size (default
+    1 MiB); each chunk carries its own CRC32 so corruption is caught at
+    chunk granularity."""
+    raw = _get("BULK_CHUNK_BYTES")
+    try:
+        value = int(raw) if raw not in (None, "") else DEFAULT_BULK_CHUNK_BYTES
+    except ValueError:
+        return DEFAULT_BULK_CHUNK_BYTES
+    return max(4096, value)
+
+
+def bulk_timeout_ms() -> float:
+    """``HVD_TPU_BULK_TIMEOUT_MS`` — per-operation socket bound (default
+    5000) on the bulk plane: connect, each chunk send/recv, and the final
+    ack all share it, so a dead or partitioned peer becomes an abort-and-
+    fallback, never a hang."""
+    raw = _get("BULK_TIMEOUT_MS")
+    try:
+        return float(raw) if raw not in (None, "") else DEFAULT_BULK_TIMEOUT_MS
+    except ValueError:
+        return DEFAULT_BULK_TIMEOUT_MS
+
+
+def bulk_max_bytes() -> int:
+    """``HVD_TPU_BULK_MAX_BYTES`` — ceiling (default 1 GiB) on one bulk
+    stream's advertised payload; larger headers are structured errors."""
+    raw = _get("BULK_MAX_BYTES")
+    try:
+        return int(raw) if raw not in (None, "") else DEFAULT_BULK_MAX_BYTES
+    except ValueError:
+        return DEFAULT_BULK_MAX_BYTES

@@ -318,3 +318,101 @@ def test_library_name_follows_source_and_flags():
                                       "rmsnorm_fwd"]
     for k in _build.KERNELS.values():
         assert os.path.exists(k.source)
+
+
+# -- the native core's own copy (fleet serving) -------------------------------
+
+FLEET_MODULES = (
+    "horovod_tpu_torch.core._build", "horovod_tpu_torch.core.engine",
+    "horovod_tpu_torch.core.executors", "horovod_tpu_torch.utils.backoff",
+    "horovod_tpu_torch.analysis.schedule", "horovod_tpu_torch.faults",
+    "horovod_tpu_torch.dataplane", "horovod_tpu_torch.replication",
+    "horovod_tpu_torch.elastic", "horovod_tpu_torch.serving.worker",
+    "horovod_tpu_torch.serving.soak", "horovod_tpu_torch.serving.__main__")
+
+
+@pytest.mark.parametrize("mod", FLEET_MODULES)
+def test_fleet_module_is_checked(mod):
+    # Walked by the two import checks above, which it passes.
+    assert mod in _modules()
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    test_no_import_statement_names_jax(path)
+
+
+def test_fleet_modules_alone_import_no_jax_and_nothing_of_horovod_tpu():
+    code = ("import json, sys\n"
+            f"for m in {FLEET_MODULES!r}: __import__(m)\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert not [m for m in json.loads(out.strip().splitlines()[-1])
+                if _forbidden(m)]
+
+
+def test_core_library_is_built_from_the_port_sources_into_build():
+    from horovod_tpu_torch.core import _build as core_build
+    from horovod_tpu_torch.core import engine as core_engine
+
+    assert core_build.SRC == os.path.join(PKG_DIR, "core", "src")
+    assert core_build.BUILD_DIR == os.path.join(REPO, "build",
+                                                "horovod_tpu_torch", "core")
+    path = core_build.build()
+    assert os.path.dirname(path) == core_build.BUILD_DIR
+    assert os.path.basename(path).startswith("libhvdcore-")
+    assert core_engine.lib()._name == path
+    # Every source the JAX package's Makefile links, and no tool of its.
+    assert sorted(f for f in os.listdir(core_build.SRC) if f.endswith(".cc")) \
+        == sorted(s + ".cc" for s in core_build.SOURCES)
+    # Nothing is written inside the package.
+    assert not [f for f in os.listdir(core_build.SRC)
+                if f.endswith((".o", ".so"))]
+    assert not [f for f in os.listdir(os.path.join(PKG_DIR, "core"))
+                if f.endswith(".so")]
+
+
+def test_core_library_name_follows_sources_and_flags(monkeypatch, tmp_path):
+    from horovod_tpu_torch.core import _build as core_build
+
+    src = tmp_path / "src"
+    shutil.copytree(core_build.SRC, src)
+    monkeypatch.setattr(core_build, "SRC", str(src))
+    flags = core_build.CXX_FLAGS
+    before = core_build.library_path(flags)
+    with open(src / "half.h", "a") as f:
+        f.write("// edited\n")
+    assert core_build.library_path(flags) != before
+    assert core_build.library_path(flags + ("-g",)) != \
+        core_build.library_path(flags)
+
+
+def test_core_build_failure_raises_and_never_falls_back(monkeypatch,
+                                                       tmp_path):
+    from horovod_tpu_torch.core import _build as core_build
+    from horovod_tpu_torch.core import engine as core_engine
+
+    fake = tmp_path / "g++"
+    fake.write_text("#!/bin/sh\necho 'error: refused' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(core_build, "_cxx", lambda: str(fake))
+    monkeypatch.setattr(core_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(core_build, "_lib", None)
+    monkeypatch.setattr(core_engine, "_lib", None)
+    # Another library named in the environment is never loaded instead.
+    monkeypatch.setenv("HVD_CORE_LIB", os.path.join(
+        REPO, "horovod_tpu", "core", "libhvdcore.so"))
+    with pytest.raises(RuntimeError, match="refused"):
+        core_engine.lib()
+    with pytest.raises(RuntimeError, match="refused"):
+        core_build.load()
+    assert core_build._lib is None and core_engine._lib is None
+    # No partial library: only the lock file is left.
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [".lock"]
+
+
+def test_core_build_without_a_compiler_raises(monkeypatch):
+    from horovod_tpu_torch.core import _build as core_build
+
+    monkeypatch.setattr(core_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="C\\+\\+17 compiler"):
+        core_build._cxx()
