@@ -118,6 +118,29 @@ line each:
    train_accumulate — ``--accumulate 4`` at B = 8: loss and gradients
                  against the full-batch step within the train bounds, and
                  four times a step's launches;
+   train_eager — the same 162M step through the eager engine path:
+                 ``init`` on NCCL at world 1 with ``HVD_TPU_EXECUTOR=
+                 multihost`` (the device route), the binding's
+                 ``horovod_tpu_torch.torch.DistributedOptimizer(AdamW)``
+                 with parameters and optimizer state broadcast through the
+                 engine; 3 warm-up and 10 timed steps.  Checks: the five
+                 kernels' launches a step, a falling finite loss, a
+                 response-cache hit for every gradient tensor from the
+                 second step on, and, in a step whose backward is queued
+                 behind a spin kernel, every gradient after ``synchronize``
+                 bitwise equal to the copy its hook took.  Prints the
+                 engine's batches and their bytes a step, step time
+                 against ``train``'s, tokens/s, the executor's host ms, its
+                 stream span and device ms a step, the idle share and peak
+                 memory;
+   train_eager_2proc — two processes on the card (``chip_smoke.py
+                 --eager-worker``), the gather route over gloo, the 162M
+                 widths at depth 2, B = 2 a rank: 3 steps on
+                 ``Compression.none`` and 3 on ``Compression.int8``.
+                 Checks, every step: both ranks' parameters bitwise equal;
+                 the reduced gradients against a host f32 sum of both
+                 ranks' (rel. L2 <= 1e-6), or on int8 within the sum of
+                 the ranks' scales; each rank's launches;
 9. resnet      — the ResNet-50 step of ``python -m
                  horovod_tpu_torch.train_resnet`` at full size (128 images
                  of 224×224×3 on the card, bf16 over f32 parameters,
@@ -132,8 +155,8 @@ line each:
                  kernels on the tensor cores, the two RMSNorm kernels on
                  the CUDA cores) and a line on its design; ``launches`` is
                  the sum over the serve, serve_paged (a-d), router,
-                 serve_fleet (summed over its replicas' reports) and train
-                 runs, each counted from 0 around its own run
+                 serve_fleet (summed over its replicas' reports), train and
+                 train_eager runs, each counted from 0 around its own run
                  (``launches_by_run``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1722,6 +1745,350 @@ def phase_train_accumulate(accumulate: int = 4) -> dict:
     return launches
 
 
+# -- the eager engine path (slice 10) ----------------------------------------
+
+# train_eager_2proc: two processes on the one card, the 162M widths at
+# depth 2, B = 2 rows of 1024 tokens a rank (a seed of their own), the
+# gather route; 3 steps on Compression.none, then 3 on Compression.int8.
+EAGER_2PROC_LAYERS, EAGER_2PROC_BATCH, EAGER_2PROC_STEPS = 2, 2, 3
+EAGER_2PROC_TIMEOUT_S = 300.0
+# The reduced gradients of the 2-process leg against a host f32 sum of
+# both ranks' gradients, on Compression.none.
+EAGER_GRAD_REL_L2 = 1e-6
+
+
+def _eager_trainer(cfg, dev, compression=None):
+    """The 162M step's model (seeded weights) and AdamW, wrapped in the
+    binding's ``DistributedOptimizer``; parameters and optimizer state
+    broadcast from rank 0 through the engine.  Returns ``(model, opt,
+    captured)``: while ``captured["on"]``, a hook registered before the
+    optimizer's (so it fires first) keeps a copy of each gradient the
+    optimizer is about to send, with the int8 wire's carried residual
+    added, under the parameter's name."""
+    import horovod_tpu_torch.torch as hvdt
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, device=dev)
+    model.load_state_dict(init_params(cfg, SEED))
+    hvdt.broadcast_parameters(model.state_dict(), root_rank=0)
+    captured = {}
+
+    def capture(name):
+        def hook(p):
+            if captured.get("on"):
+                res = captured["opt"]._residuals.get(id(p))
+                g = p.grad.detach().float()
+                captured[name] = (g + res if res is not None else g).clone()
+        return hook
+
+    for name, p in model.named_parameters():
+        p.register_post_accumulate_grad_hook(capture(name))
+    opt = hvdt.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=tt.LR,
+                          weight_decay=tt.WEIGHT_DECAY),
+        named_parameters=model.named_parameters(),
+        compression=compression or hvdt.Compression.none)
+    captured["opt"] = opt
+    hvdt.broadcast_optimizer_state(opt, root_rank=0)
+    return model, opt, captured
+
+
+def _engine_step_stats(before_cache: dict, before_batches: int) -> dict:
+    """The engine's work in the step just run: batches, their bytes, and
+    the response cache's hits and misses."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.core import executors
+
+    st = executors.stats(wait_device=False)
+    cache = basics.cache_stats()
+    batches = st["batches"] - before_batches
+    return {"batches": batches,
+            "bytes": st["bytes"][len(st["bytes"]) - batches:],
+            "cache_hits": cache["hits"] - before_cache["hits"],
+            "cache_misses": cache["misses"] - before_cache["misses"]}
+
+
+def _eager_steps(model, opt, tokens, steps: int):
+    """``steps`` training steps, each with the engine's work in it."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.core import executors
+
+    losses, per_step = [], []
+    for _ in range(steps):
+        cache = basics.cache_stats()
+        batches = executors.stats(wait_device=False)["batches"]
+        losses.append(tt.train_step(model, opt, tokens))
+        per_step.append(_engine_step_stats(cache, batches))
+    return losses, per_step
+
+
+def phase_train_eager(train: dict) -> dict:
+    """The 162M training step through the eager engine path: ``init`` on
+    NCCL at world 1 with ``HVD_TPU_EXECUTOR=multihost`` (the device route
+    of ``core/device_reduce.py``, a sum over one rank), the binding's
+    ``DistributedOptimizer(AdamW)``: every gradient goes to the engine from
+    its post-accumulate-grad hook, is fused, reduced by the executor on its
+    own stream, and copied back at ``step()``.
+
+    Checks: the five kernels' launches a step; a falling finite loss; from
+    the second step on, a response-cache hit for every gradient tensor;
+    and, in a step whose backward waits behind a spin kernel (the hooks
+    fire long before the gradients exist on the card), every gradient
+    after ``synchronize`` bitwise equal to the one its hook saw."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.core import executors
+    from horovod_tpu_torch.utils import trace
+
+    saved = os.environ.get("HVD_TPU_EXECUTOR")
+    os.environ["HVD_TPU_EXECUTOR"] = "multihost"
+    basics.init()   # NCCL, world 1
+    try:
+        dev = basics.device()
+        cfg = tt.train_config()
+        model, opt, captured = _eager_trainer(cfg, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        n_tensors = sum(1 for p in model.parameters() if p.requires_grad)
+        tokens = tt.token_batch(cfg.vocab_size, dev)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        from horovod_tpu_torch.ops import _build
+
+        _build.reset_launches()
+        executors.reset_stats()
+        losses, per_step = _eager_steps(model, opt, tokens,
+                                        tt.WARMUP_STEPS)
+        torch.cuda.synchronize()
+        executors.reset_stats()
+        t0 = time.perf_counter()
+        timed, timed_steps = _eager_steps(model, opt, tokens,
+                                          tt.TIMED_STEPS)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / tt.TIMED_STEPS
+        ex = executors.stats()
+        losses = [float(x) for x in losses + timed]
+        per_step += timed_steps
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        per = _per_step(cfg)
+        _check_steps("train_eager", losses, launches, per)
+        hits = [s["cache_hits"] for s in per_step]
+        if hits[1:] != [n_tensors] * (len(hits) - 1):
+            raise AssertionError(f"train_eager cache hits a step {hits}, "
+                                 f"want {n_tensors} from step 2 on")
+
+        # The stream check: backward queued behind ~50 ms of spinning.
+        opt.zero_grad(set_to_none=True)
+        loss = tt.loss_fn(model, tokens)
+        captured["on"] = True
+        torch.cuda._sleep(SPIN_CYCLES)
+        loss.backward()
+        captured["on"] = False
+        opt.synchronize()
+        mismatched = [n for n, p in model.named_parameters()
+                      if not torch.equal(p.grad, captured[n])]
+        if mismatched:
+            raise AssertionError(f"train_eager: gradients after "
+                                 f"synchronize differ from the hooks' "
+                                 f"copies: {mismatched[:5]}")
+        opt.zero_grad(set_to_none=True)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            breakdown = trace.measure(
+                "train_eager_step",
+                lambda: tt.train_step(model, opt, tokens), 3, tmp)
+        tok_s = tt.BATCH * tt.SEQ_LEN / step_s
+        emit("train_eager", params=n_params, grad_tensors=n_tensors,
+             batch=tt.BATCH, seq_len=tt.SEQ_LEN, processes=basics.size(),
+             backend=torch.distributed.get_backend(),
+             executor="multihost", route="device", losses=losses,
+             step_ms=step_s * 1e3, train_step_ms=train["step_ms"],
+             tok_per_s=tok_s,
+             mfu=tok_s * tt.flops_per_token(n_params, cfg, tt.SEQ_LEN)
+             / PEAK_BF16_FLOPS,
+             engine_per_step=per_step,
+             executor_host_ms_per_step=ex["host_ms"] / tt.TIMED_STEPS,
+             executor_stream_ms_per_step=ex["stream_ms"] / tt.TIMED_STEPS,
+             executor_device_ms_per_step=_off_compute_stream_ms(breakdown),
+             launches=launches, launches_per_step=per,
+             grads_bit_equal_to_hooks=n_tensors,
+             max_memory_allocated=peak, breakdown=breakdown)
+    finally:
+        basics.shutdown()
+        if saved is None:
+            os.environ.pop("HVD_TPU_EXECUTOR", None)
+        else:
+            os.environ["HVD_TPU_EXECUTOR"] = saved
+    return {"launches": launches, "step_ms": step_s * 1e3}
+
+
+def _off_compute_stream_ms(breakdown: dict) -> float:
+    """Device ms a step on every stream but the step's compute stream (the
+    one with the most device time): the executor's copies, sums and
+    collectives, on its own stream and NCCL's."""
+    by_stream = breakdown["device_ms_by_stream"]
+    compute = max(by_stream, key=by_stream.get)
+    return sum(ms for s, ms in by_stream.items() if s != compute)
+
+
+def _param_digests(model) -> list[str]:
+    import hashlib
+
+    return [hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for p in model.parameters()]
+
+
+def eager_worker(rank: int, port: int, cport: int) -> None:
+    """One rank of ``train_eager_2proc`` (``chip_smoke.py --eager-worker
+    RANK PORT CPORT``): prints one ``EAGER_REPORT`` JSON line."""
+    import horovod_tpu_torch.torch as hvdt
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.core import executors
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import trace
+
+    basics.init(device="cuda:0", init_method=f"tcp://localhost:{port}",
+                rank=rank, size=2)
+    try:
+        dev = basics.device()
+        cfg = tt.train_config(num_layers=EAGER_2PROC_LAYERS)
+        rng = np.random.RandomState(1 + rank)
+        tokens = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (EAGER_2PROC_BATCH, tt.SEQ_LEN))).to(dev)
+        report = {"rank": rank, "backend": torch.distributed.get_backend(),
+                  "host_backend": torch.distributed.get_backend(
+                      basics.host_group()), "runs": {}}
+        for comp_name in ("none", "int8"):
+            comp = getattr(hvdt.Compression, comp_name)
+            model, opt, captured = _eager_trainer(cfg, dev, comp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            executors.reset_stats()
+            steps = []
+            for _ in range(EAGER_2PROC_STEPS):
+                captured["on"] = True
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = tt.train_step(model, opt, tokens)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                captured["on"] = False
+                digests = hvdt.allgather_object(_param_digests(model))
+                errs = []
+                for name, p in model.named_parameters():
+                    # Both ranks' gradients (with the carried residual on
+                    # the int8 wire), summed on the host in f32.
+                    mine = captured[name].reshape(-1).cpu()
+                    rows = torch.empty(2 * mine.numel())
+                    torch.distributed.all_gather_into_tensor(
+                        rows, mine, group=basics.host_group())
+                    rows = rows.view(2, -1)
+                    want = rows[0] + rows[1]
+                    got = 2 * p.grad.float().reshape(-1).cpu()
+                    if comp_name == "none":
+                        errs.append(float((got - want).norm()
+                                          / want.norm()))
+                    else:
+                        scales = [max(float(r.abs().max()) / 127.0,
+                                      float(torch.finfo(torch.float32).tiny))
+                                  for r in rows]
+                        errs.append(float((got - want).abs().max())
+                                    / sum(scales))
+                steps.append({"loss": float(loss), "step_ms": step_ms,
+                              "params_equal": digests[0] == digests[1],
+                              "worst": max(errs)})
+            ex, launches = executors.stats(), _launches()
+            with tempfile.TemporaryDirectory() as tmp:
+                breakdown = trace.measure(
+                    f"train_eager_2proc_{comp_name}",
+                    lambda: tt.train_step(model, opt, tokens), 1, tmp)
+            report["runs"][comp_name] = {
+                "steps": steps, "launches": launches,
+                "batches": ex["batches"], "bytes": ex["bytes"],
+                "executor_host_ms_per_step": ex["host_ms"]
+                / EAGER_2PROC_STEPS,
+                "executor_stream_ms_per_step": ex["stream_ms"]
+                / EAGER_2PROC_STEPS,
+                "executor_device_ms_per_step":
+                    _off_compute_stream_ms(breakdown),
+                "traced_step": {k: breakdown[k] for k in (
+                    "wall_ms", "device_busy_ms", "device_idle_share",
+                    "kernels_per_call")},
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            del model, opt, captured
+        print("EAGER_REPORT " + json.dumps(report), flush=True)
+    finally:
+        basics.shutdown()
+
+
+def phase_train_eager_2proc() -> dict:
+    """Two processes on the one card through the eager engine's gather
+    route (``HVD_TPU_EAGER_REDUCE=gather``): ``init(device="cuda")``
+    forms the NCCL default group, on which nothing runs (NCCL refuses two
+    ranks on one device), and the gloo host group that the route stages
+    through.  The 162M widths at depth 2, B = 2 a rank.
+
+    Checks, each step: both ranks' parameters bitwise equal; on
+    ``Compression.none`` the averaged gradients against a host f32 sum of
+    both ranks' (rel. L2 ≤ ``EAGER_GRAD_REL_L2``); on ``Compression.int8``
+    the sum's error within the sum of both ranks' scales; both ranks'
+    kernels launched per step."""
+    from horovod_tpu_torch.serving.soak import free_port
+
+    port, cport = free_port(), free_port()
+    env = {**os.environ, "HVD_TPU_EXECUTOR": "multihost",
+           "HVD_TPU_EAGER_REDUCE": "gather",
+           "HVD_TPU_COORDINATOR_PORT": str(cport)}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--eager-worker",
+         str(r), str(port), str(cport)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=EAGER_2PROC_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = next((l for l in out.splitlines()
+                     if l.startswith("EAGER_REPORT ")), None)
+        if p.returncode != 0 or line is None:
+            raise AssertionError(f"train_eager_2proc rank {r} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+        reports.append(json.loads(line.split(" ", 1)[1]))
+    from horovod_tpu_torch import train_transformer as tt
+
+    per = _per_step(tt.train_config(num_layers=EAGER_2PROC_LAYERS))
+    for rep in reports:
+        for comp, run in rep["runs"].items():
+            want = {n: c * EAGER_2PROC_STEPS for n, c in per.items()}
+            if run["launches"] != want:
+                raise AssertionError(f"train_eager_2proc rank "
+                                     f"{rep['rank']} {comp}: launches "
+                                     f"{run['launches']}, want {want}")
+            for i, s in enumerate(run["steps"]):
+                bound = EAGER_GRAD_REL_L2 if comp == "none" else 1.0
+                if not s["params_equal"] or not s["worst"] <= bound \
+                        or not math.isfinite(s["loss"]):
+                    raise AssertionError(f"train_eager_2proc rank "
+                                         f"{rep['rank']} {comp} step {i}: "
+                                         f"{s}")
+    emit("train_eager_2proc", processes=2, layers=EAGER_2PROC_LAYERS,
+         batch_per_rank=EAGER_2PROC_BATCH, seq_len=tt.SEQ_LEN,
+         executor="multihost", route="gather", reports=reports)
+    return {"reports": reports}
+
+
 def _is_bypass(plan) -> bool:
     """The adaptive planner's width-1 bypass: no hook, no collective."""
     return (plan is not None and plan["planner"] == "adaptive"
@@ -1817,13 +2184,15 @@ def main() -> int:
         phase_train_mixed(train)
         phase_train_remat(train)
         phase_train_accumulate()
+        eager = phase_train_eager(train)
     check_norm_rows(norm_rows)
+    phase_train_eager_2proc()
     # Launches on the path: the serve, serve_paged (a-d), router,
-    # serve_fleet (every replica's serving run) and 162M train runs, each
-    # counted from 0 around its own run.
+    # serve_fleet (every replica's serving run), 162M train and train_eager
+    # runs, each counted from 0 around its own run.
     runs = {"serve": serve_launches, "serve_paged": paged_launches,
             "router": router_launches, "serve_fleet": fleet_launches,
-            "train": train["launches"]}
+            "train": train["launches"], "train_eager": eager["launches"]}
     launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
     entries = []
@@ -1874,4 +2243,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--eager-worker"]:
+        eager_worker(*(int(a) for a in sys.argv[2:5]))
+        sys.exit(0)
     sys.exit(main())

@@ -25,20 +25,35 @@ feedback, ``init(ranks=...)``) and ``callbacks``; the paged KV pool with
 shared-prefix reuse and speculation, the router (slice 8); and fleet
 serving (slice 9) on the port's own copy of the native control plane
 (``core/``: the C++ core, its ctypes shim), with ``dataplane``,
-``replication`` and ``elastic``.  Importing the package creates no
-process group; :func:`init` does.
+``replication`` and ``elastic``; the eager engine path (slice 10): the
+handle API of ``ops/async_ops.py`` (``allreduce_async``, ``poll``,
+``synchronize``, ``barrier``, ...) over the native engine and its
+cross-process executor (``core/executors.py``, ``core/device_reduce.py``),
+the engine's reports, and the ``horovod_tpu_torch.torch`` binding.  The
+top-level :func:`synchronize` takes an engine handle (an ``int``);
+``ops.collective_ops.synchronize`` takes the ``AllreduceHandle`` of
+:func:`grouped_allreduce_async`.  Importing the package creates no process
+group; :func:`init` does.
 """
 
 from __future__ import annotations
 
-from horovod_tpu_torch.basics import (NotInitializedError, cross_rank,
-                                      cross_size, init, is_initialized,
-                                      local_rank, local_size, num_chips,
-                                      rank, shutdown, size)
+from horovod_tpu_torch.basics import (NotInitializedError, cache_stats,
+                                      control_plane_stats, coord_state,
+                                      cross_rank, cross_size, failure_report,
+                                      init, is_initialized, local_rank,
+                                      local_size, mpi_threads_supported,
+                                      num_chips, rank, shutdown, size,
+                                      stall_report)
+from horovod_tpu_torch.core.engine import CollectiveError, MembershipChanged
 from horovod_tpu_torch.ops.collective_ops import (
     allgather, allgather_object, allreduce, allreduce_sparse, alltoall,
     broadcast, grouped_allreduce, quantized_grouped_allreduce,
     sparse_to_dense)
+from horovod_tpu_torch.ops.async_ops import (allgather_async,
+                                             allreduce_async, alltoall_async,
+                                             barrier, broadcast_async, poll,
+                                             synchronize)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.ops.schedule_plan import overlap_plan
@@ -55,13 +70,17 @@ from horovod_tpu_torch import callbacks  # noqa: E402  (imports training)
 __version__ = "0.1.0"
 
 __all__ = [
-    "Compression", "DistributedOptimizer", "NotInitializedError",
-    "accumulate_gradients", "allgather", "allgather_object", "allreduce",
-    "allreduce_sparse", "alltoall", "broadcast", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "callbacks",
-    "cross_rank", "cross_size", "grouped_allreduce", "init",
+    "CollectiveError", "Compression", "DistributedOptimizer",
+    "MembershipChanged", "NotInitializedError", "accumulate_gradients",
+    "allgather", "allgather_async", "allgather_object", "allreduce",
+    "allreduce_async", "allreduce_sparse", "alltoall", "alltoall_async",
+    "barrier", "broadcast", "broadcast_async", "broadcast_object",
+    "broadcast_optimizer_state", "broadcast_parameters", "cache_stats",
+    "callbacks", "control_plane_stats", "coord_state", "cross_rank",
+    "cross_size", "failure_report", "grouped_allreduce", "init",
     "is_initialized", "local_rank", "local_size", "master_weights",
-    "num_chips", "overlap_plan", "quantized_grouped_allreduce", "rank",
-    "resolve_device", "scale_learning_rate", "shutdown", "size",
-    "softmax_cross_entropy", "sparse_to_dense",
+    "mpi_threads_supported", "num_chips", "overlap_plan", "poll",
+    "quantized_grouped_allreduce", "rank", "resolve_device",
+    "scale_learning_rate", "shutdown", "size", "softmax_cross_entropy",
+    "sparse_to_dense", "stall_report", "synchronize",
 ]

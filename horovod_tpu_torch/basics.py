@@ -23,12 +23,22 @@ and enters ``dist.new_group`` (torch requires all of them there), a member's
 ``rank()`` becomes its position in the list and ``size()`` the list's
 length, and every collective of the port runs over that group
 (:func:`process_group`).  A process that is not in the list raises.
+
+On ``cuda`` :func:`init` also forms a gloo group over the same members
+(:func:`host_group`): the eager engine's executor reduces CPU tensors, and
+every tensor on its gather route (``HVD_TPU_EAGER_REDUCE=gather``), over
+it.  Every group fails a collective that has not completed in
+``COLLECTIVE_TIMEOUT``.  :func:`shutdown` stops the eager engine before it
+destroys the groups; :func:`stall_report`, :func:`failure_report`,
+:func:`coord_state`, :func:`cache_stats` and :func:`control_plane_stats`
+read that engine.
 """
 
 from __future__ import annotations
 
 import atexit
 import dataclasses
+import datetime
 import os
 import shutil
 import tempfile
@@ -63,7 +73,13 @@ class Topology:
     # unless init(ranks=...)), and their group (None: the world group).
     members: tuple = ()
     group: object = None
+    # A gloo group over the same members (the group itself under gloo).
+    host_group: object = None
 
+
+# How long a collective of the job's groups may take before it fails (a
+# peer that never comes; torch's own defaults are 10 and 30 minutes).
+COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
 _lock = threading.Lock()
 _topology: Topology | None = None
@@ -140,10 +156,18 @@ def init(*, device=None, init_method: str | None = None,
                              f"distinct process indices in [0, {size})")
         try:
             dist.init_process_group(backend, init_method=init_method,
-                                    rank=rank, world_size=size)
+                                    rank=rank, world_size=size,
+                                    timeout=COLLECTIVE_TIMEOUT)
             group = None
             if len(members) < size:
-                group = dist.new_group(list(members))
+                group = dist.new_group(list(members),
+                                       timeout=COLLECTIVE_TIMEOUT)
+            host_group = group
+            if backend != "gloo":
+                # Every process of the launch enters new_group, as above.
+                host_group = dist.new_group(
+                    list(members), timeout=COLLECTIVE_TIMEOUT,
+                    backend="gloo")
         except BaseException:
             _remove_store_dir()
             raise
@@ -159,7 +183,7 @@ def init(*, device=None, init_method: str | None = None,
             local_rank=local_rank, local_size=local_size,
             cross_rank=rank // local_size,
             cross_size=-(-size // local_size), device=dev, members=members,
-            group=group)
+            group=group, host_group=host_group)
     atexit.register(shutdown)
 
 
@@ -171,12 +195,16 @@ def _remove_store_dir() -> None:
 
 
 def shutdown() -> None:
-    """Leave the job: destroy the process group.  Idempotent."""
+    """Leave the job: stop the eager engine, then destroy the process
+    groups.  Idempotent."""
     global _topology
     with _lock:
         if _topology is None:
             return
         _topology = None
+        from horovod_tpu_torch.core import engine as _engine
+
+        _engine.shutdown_engine()
         if dist.is_initialized():
             dist.destroy_process_group()
         _remove_store_dir()
@@ -235,6 +263,78 @@ def process_group():
     return _topo().group
 
 
+def host_group():
+    """The gloo group of the job's members: :func:`process_group` under
+    gloo, a group of its own on ``cuda``."""
+    return _topo().host_group
+
+
 def launch_rank(r: int) -> int:
     """The launch (world) rank of the job's rank ``r``."""
     return _topo().members[r]
+
+
+# -- the eager engine's reports (horovod_tpu/basics.py:336-448) -------------
+
+def stall_report() -> list:
+    """``[(tensor_name, [missing ranks]), ...]`` for every collective of
+    the eager engine stuck past the stall-warning window
+    (``HOROVOD_STALL_WARNING_TIME``); empty off the coordinator, when
+    nothing is stalled, or when the engine was never started."""
+    _topo()
+    from horovod_tpu_torch.core import engine as _engine
+
+    return _engine.stall_report()
+
+
+def failure_report() -> dict | None:
+    """The eager engine's peer-failure report: ``None`` while every peer is
+    healthy (or the engine never started), else ``{"failed_rank",
+    "cause", "detail", "last_heard_ms", "last_collective"}`` on every
+    surviving rank.  Pending collectives fail with ``CollectiveError``, and
+    after ``HVD_TPU_ABORT_GRACE_MS`` the process exits with the
+    restartable code (75)."""
+    _topo()
+    from horovod_tpu_torch.core import engine as _engine
+
+    return _engine.failure_report()
+
+
+def coord_state() -> dict | None:
+    """The coordinator state replicated onto this rank (the designated
+    standby of an elastic job; the coordinator reports its own): ``{"epoch",
+    "joins_admitted", "verify_checked", "verify_tick", "lru_order"}``, or
+    ``None``."""
+    _topo()
+    from horovod_tpu_torch.core import engine as _engine
+
+    return _engine.coord_state()
+
+
+def cache_stats() -> dict:
+    """Response-cache counters of this rank's eager engine: ``{"hits",
+    "misses", "evictions", "bypassed_ticks", "entries", "capacity"}``; all
+    zeros when the engine was never started or ``HOROVOD_CACHE_CAPACITY=0``.
+    """
+    _topo()
+    from horovod_tpu_torch.core import engine as _engine
+
+    return _engine.cache_stats()
+
+
+def control_plane_stats() -> dict:
+    """Control-plane topology and tick latency of this rank's eager
+    engine: ``{"role", "depth", "fanout", "tick_p50_ms", "tick_p99_ms",
+    "frames_per_tick", "ticks", "frames_rx"}`` (role ``none`` before the
+    engine starts)."""
+    _topo()
+    from horovod_tpu_torch.core import engine as _engine
+
+    return _engine.control_plane_stats()
+
+
+def mpi_threads_supported() -> bool:
+    """API parity with the reference: there is no MPI; the port is safe to
+    drive from several Python threads, so this is True."""
+    _topo()
+    return True

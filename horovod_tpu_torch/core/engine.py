@@ -7,14 +7,25 @@
   response cache, heartbeats and elastic reconfiguration, the stall checker
   and the Chrome-tracing timeline.
 * This module is its Python face: :class:`NativeEngine` enqueues named
-  tensors, and an **executor thread** polls the engine for fused
+  torch tensors, and an **executor thread** polls the engine for fused
   :class:`ExecBatch` es, runs them through the ``executor=`` callable and
-  reports completion.  The port has one executor so far,
-  ``core/executors.local_executor``, whose collectives run over this
-  process alone (a sum over one contributor): the serving fleet's
-  ``serving.tick`` uses the engine for its ordering, its response cache and
-  its membership protocol, and keeps that rank-local meaning, as the JAX
-  package's fleet does.
+  reports completion.  ``core/executors.py`` holds the two executors:
+  ``local_executor`` (collectives over this process alone; the serving
+  fleet's ``serving.tick`` keeps that rank-local meaning, as the JAX
+  package's fleet does) and ``multihost_executor``, which reduces each
+  fused batch across the processes over ``torch.distributed``.
+
+**Tensors stay on their device.**  The store holds each enqueued tensor as
+it was given (detached, made contiguous), on the card or on the CPU.  A
+CUDA tensor is stamped with an event on the enqueuing thread's current
+stream (autograd's device thread, for a gradient hook), and the executor
+thread makes its own current stream wait on that event before it reads the
+tensor: the executor's copies come after the kernel that wrote it, whatever
+order the host threads run in.  The executor stamps each result the same
+way, and :meth:`NativeEngine.synchronize` makes the caller's current stream
+wait on that stamp before it hands the result back.  No stream waits on the
+host.  A numpy array (the fleet tick) is enqueued as a CPU tensor and comes
+back from ``synchronize`` as numpy.
 
 The shim, its enums and its binary layouts are the JAX package's, line for
 line; what differs is where the library comes from (never the JAX
@@ -31,6 +42,7 @@ import threading
 from typing import Callable
 
 import numpy as np
+import torch
 
 from horovod_tpu_torch.core import _build
 from horovod_tpu_torch.utils import env
@@ -58,6 +70,12 @@ DTYPES: dict[str, int] = {
     "float32": 5, "float64": 6, "bool": 7, "bfloat16": 8,
 }
 DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
+# The core's dtype ids by torch dtype (the port's tensors).
+TORCH_DTYPES: dict[torch.dtype, int] = {
+    torch.uint8: 0, torch.int8: 1, torch.int32: 2, torch.int64: 3,
+    torch.float16: 4, torch.float32: 5, torch.float64: 6, torch.bool: 7,
+    torch.bfloat16: 8,
+}
 
 
 class CollectiveError(RuntimeError):
@@ -267,6 +285,36 @@ _CP_ROLES = {0: "loopback", 1: "star_coordinator", 2: "star_worker",
              3: "tree_root", 4: "tree_member"}
 
 
+class _Staged:
+    """One tensor between ``enqueue`` (or the executor) and its reader:
+    the tensor, the stream it was stamped on and the event after which it
+    may be read there (``None`` on the CPU), and whether the caller gave
+    numpy."""
+
+    __slots__ = ("tensor", "stream", "ready", "as_numpy")
+
+    def __init__(self, tensor: torch.Tensor, as_numpy: bool = False):
+        self.tensor = tensor
+        self.as_numpy = as_numpy
+        self.stream = self.ready = None
+        if tensor.is_cuda:
+            self.stream = torch.cuda.current_stream(tensor.device)
+            self.ready = torch.cuda.Event()
+            self.ready.record(self.stream)
+
+    def wait(self) -> torch.Tensor:
+        """The tensor, once the calling thread's current stream has been
+        ordered after the event; a reader on another stream is recorded on
+        the tensor, so its memory is not reused before that stream's work
+        on it is done."""
+        if self.ready is not None:
+            current = torch.cuda.current_stream(self.tensor.device)
+            if current != self.stream:
+                current.wait_event(self.ready)
+                self.tensor.record_stream(current)
+        return self.tensor
+
+
 class NativeEngine:
     """One per process; wraps the C++ engine + the executor thread."""
 
@@ -295,9 +343,9 @@ class NativeEngine:
                           cache_capacity=cache_capacity,
                           bulk_port=bulk_port)
         self._lib = lib()
-        self._store: dict[str, np.ndarray] = {}
-        self._results: dict[int, np.ndarray] = {}
-        self._handle_names: dict[int, tuple[str, np.ndarray]] = {}
+        self._store: dict[str, _Staged] = {}
+        self._results: dict[int, _Staged] = {}
+        self._handle_names: dict[int, tuple[str, _Staged]] = {}
         self._store_lock = threading.Lock()
         self._shutdown = threading.Event()
         from horovod_tpu_torch.core import executors
@@ -340,20 +388,24 @@ class NativeEngine:
 
     # -- client API ---------------------------------------------------------
 
-    def enqueue(self, name: str, array: np.ndarray, op: int,
+    def enqueue(self, name: str, tensor, op: int,
                 root_rank: int = -1, wire: int = WIRE_NATIVE) -> int:
         """Announce a tensor; returns an async handle (reference
-        EnqueueTensorAllreduce, operations.cc:2025-2061)."""
-        arr = np.ascontiguousarray(array)
-        dtype_id = DTYPES.get(arr.dtype.name)
+        EnqueueTensorAllreduce, operations.cc:2025-2061).  ``tensor`` is a
+        torch tensor on any device, or a numpy array (its result comes
+        back as numpy)."""
+        as_numpy = isinstance(tensor, np.ndarray)
+        t = torch.from_numpy(np.ascontiguousarray(tensor)) if as_numpy \
+            else tensor.detach()
+        dtype_id = TORCH_DTYPES.get(t.dtype)
         if dtype_id is None:
-            raise TypeError(f"unsupported dtype {arr.dtype}")
-        if wire == WIRE_INT8 and (
-                op != OP_ALLREDUCE
-                or (arr.dtype.kind != "f" and arr.dtype.name != "bfloat16")):
+            raise TypeError(f"unsupported dtype {t.dtype}")
+        if wire == WIRE_INT8 and (op != OP_ALLREDUCE
+                                  or not t.dtype.is_floating_point):
             raise ValueError(
                 "int8 wire format applies to floating-point allreduce only")
-        dims = (ctypes.c_longlong * max(arr.ndim, 1))(*arr.shape)
+        staged = _Staged(t.contiguous(), as_numpy)
+        dims = (ctypes.c_longlong * max(t.dim(), 1))(*t.shape)
         err = ctypes.create_string_buffer(512)
         with self._store_lock:
             if name in self._store:
@@ -367,9 +419,9 @@ class NativeEngine:
                     f"loop need an explicit, per-iteration name= kwarg "
                     f"(e.g. name=f'grad.{{step}}.{{param}}') — hvd-lint "
                     f"rule HVD102, docs/static_analysis.md.")
-            self._store[name] = arr
+            self._store[name] = staged
         h = self._lib.hvd_enqueue(self._ptr, name.encode(), op, dtype_id,
-                                  dims, arr.ndim, root_rank, wire, err, 512)
+                                  dims, t.dim(), root_rank, wire, err, 512)
         if h < 0:
             with self._store_lock:
                 self._store.pop(name, None)
@@ -382,18 +434,19 @@ class NativeEngine:
                                         "and reissue")
             raise CollectiveError(err.value.decode())
         with self._store_lock:
-            self._handle_names[int(h)] = (name, arr)
+            self._handle_names[int(h)] = (name, staged)
         if self._verify_enabled:
-            self._record_verify(op, name, arr)
+            self._record_verify(op, name, DTYPE_NAMES[dtype_id],
+                                tuple(t.shape))
         return int(h)
 
     # -- schedule verifier (HVD_TPU_VERIFY_SCHEDULE; analysis/schedule.py) --
 
-    def _record_verify(self, op: int, name: str, arr: np.ndarray) -> None:
+    def _record_verify(self, op: int, name: str, dtype: str,
+                       shape: tuple) -> None:
         from horovod_tpu_torch.analysis import schedule
 
-        schedule.record_entry(OP_NAMES.get(op, str(op)), name,
-                              arr.dtype.name, arr.shape)
+        schedule.record_entry(OP_NAMES.get(op, str(op)), name, dtype, shape)
         self.flush_verify()
 
     def flush_verify(self) -> None:
@@ -762,9 +815,11 @@ class NativeEngine:
             out.append((name, [i32() for _ in range(i32())]))
         return out
 
-    def synchronize(self, handle: int, timeout_s: float = 300.0) -> np.ndarray:
-        """Block until done; return the result array.  Blocks on the native
-        condition variable (the reference instead polls at 1 ms,
+    def synchronize(self, handle: int, timeout_s: float = 300.0):
+        """Block until done; return the result, a tensor on the input's
+        device (numpy for a numpy input), ordered on the caller's current
+        stream after the executor's work.  Blocks on the native condition
+        variable (the reference instead polls at 1 ms,
         torch/mpi_ops_v2.cc:228-234)."""
         if not self._lib.hvd_wait(self._ptr, handle, timeout_s * 1000.0):
             raise TimeoutError(f"handle {handle} did not complete "
@@ -780,10 +835,10 @@ class NativeEngine:
                 # (BARRIER completes inside DispatchResponses without any
                 # executor calling take_inputs).  Free the name so later
                 # enqueues aren't rejected as duplicates — but only if the
-                # stored array is still OURS (a newer request may have
+                # stored entry is still OURS (a newer request may have
                 # legally reused the name after this handle finished).
-                name, arr = entry
-                if self._store.get(name) is arr:
+                name, staged = entry
+                if self._store.get(name) is staged:
                     self._store.pop(name, None)
         if rc == STATUS_PRECONDITION:
             if self.resize_event() is not None:
@@ -794,7 +849,12 @@ class NativeEngine:
                 raise MembershipChanged(err.value.decode())
             raise RuntimeError(
                 f"collective failed (status {rc}): {err.value.decode()}")
-        return result
+        if result is None:
+            return None
+        out = result.wait()
+        if entry is not None and entry[1].as_numpy:
+            return out.cpu().numpy()
+        return out
 
     def shutdown(self):
         if self._shutdown.is_set():
@@ -864,13 +924,24 @@ class NativeEngine:
         self._lib.hvd_timeline_instant(self._ptr, row.encode(),
                                        label.encode())
 
-    def take_inputs(self, batch: ExecBatch) -> list[np.ndarray]:
+    def take_staged(self, batch: ExecBatch) -> list[_Staged]:
+        """The batch's staged tensors, in batch order (``_Staged.wait``
+        gives each to the reader's stream)."""
         with self._store_lock:
             return [self._store.pop(name) for name in batch.names]
 
-    def put_results(self, batch: ExecBatch, outs: list[np.ndarray]):
+    def take_inputs(self, batch: ExecBatch) -> list[torch.Tensor]:
+        """The batch's tensors, in batch order; the calling thread's
+        current stream is ordered after the work that wrote each."""
+        return [s.wait() for s in self.take_staged(batch)]
+
+    def put_results(self, batch: ExecBatch, outs: list[torch.Tensor]):
+        """Hand the batch's results to their handles, each stamped with an
+        event on the calling thread's current stream: call it on the
+        stream that wrote them."""
+        staged = [_Staged(out) for out in outs]
         with self._store_lock:
-            for h, out in zip(batch.handles, outs):
+            for h, out in zip(batch.handles, staged):
                 self._results[h] = out
 
 
@@ -928,3 +999,62 @@ def replace_engine(old: NativeEngine | None,
     with _engine_lock:
         if _engine is old or _engine is None:
             _engine = new
+
+
+def stall_report() -> list[tuple[str, list[int]]]:
+    """Module-level stall report; [] when the engine was never started
+    (nothing can be stalled without the eager control plane)."""
+    eng = peek_engine()
+    return eng.stall_report() if eng is not None else []
+
+
+def cache_stats() -> dict[str, int]:
+    """Module-level response-cache counters; all zeros when the engine was
+    never started."""
+    eng = peek_engine()
+    if eng is None:
+        return {"hits": 0, "misses": 0, "evictions": 0, "bypassed_ticks": 0,
+                "entries": 0, "capacity": 0}
+    return eng.cache_stats()
+
+
+def control_plane_stats() -> dict:
+    """Module-level control-plane stats; the ``"none"`` role with zeroed
+    counters when the engine was never started."""
+    eng = peek_engine()
+    if eng is None:
+        return {"role": "none", "depth": 0, "fanout": 0, "tick_p50_ms": 0.0,
+                "tick_p99_ms": 0.0, "frames_per_tick": 0.0, "ticks": 0,
+                "frames_rx": 0}
+    return eng.control_plane_stats()
+
+
+def failure_report() -> dict | None:
+    """Module-level peer-failure report; ``None`` when the engine was never
+    started (no control plane, no peers to lose)."""
+    eng = peek_engine()
+    return eng.failure_report() if eng is not None else None
+
+
+def resize_event() -> dict | None:
+    """Module-level elastic resize event; ``None`` when the engine was
+    never started or the membership is stable."""
+    eng = peek_engine()
+    return eng.resize_event() if eng is not None else None
+
+
+def coord_state() -> dict | None:
+    """Module-level coordinator-state replica view; ``None`` when the
+    engine was never started or this rank is neither the coordinator nor
+    the designated standby."""
+    eng = peek_engine()
+    return eng.coord_state() if eng is not None else None
+
+
+def shutdown_engine() -> None:
+    """Stop the module's engine, if one was started (``basics.shutdown``)."""
+    global _engine
+    with _engine_lock:
+        if _engine is not None:
+            _engine.shutdown()
+            _engine = None

@@ -154,8 +154,11 @@ def grouped_allreduce_async(tensors: Sequence, average: bool = True,
 
 
 def synchronize(handle: AllreduceHandle) -> list:
-    """Wait for ``handle``'s collectives; its tensors summed (or averaged)
-    across the processes, in their own dtypes."""
+    """Wait for ``handle``'s collectives (the ``AllreduceHandle`` of
+    :func:`grouped_allreduce_async`; the engine's integer handles go to
+    ``ops.async_ops.synchronize``, the package's top-level ``synchronize``);
+    its tensors summed (or averaged) across the processes, in their own
+    dtypes."""
     for w in handle.works:
         w.wait()
     reduced = fusion.unpack(handle.packed, len(handle.ctxs))

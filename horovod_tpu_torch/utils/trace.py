@@ -135,6 +135,15 @@ def span_us(events, names) -> dict:
     return out
 
 
+def device_us_by_stream(events) -> dict:
+    """``{stream: device µs}`` over a trace's device events (the stream in
+    each event's args, else its ``tid``)."""
+    out = defaultdict(float)
+    for e in events:
+        out[str(e.get("args", {}).get("stream", e.get("tid")))] += e["dur"]
+    return dict(out)
+
+
 def busy_us(events) -> float:
     """Length of the union of the events' intervals."""
     total, end = 0.0, float("-inf")
@@ -237,4 +246,8 @@ def measure(name: str, fn, calls: int, trace_dir: str,
             "other_by_op": {k: v for k, v in other_top},
             "largest_copy": largest_copy,
             # Device ms per call of the kernels launched in each span.
-            "span_ms": span_ms}
+            "span_ms": span_ms,
+            # Device ms per call on each stream.
+            "device_ms_by_stream": {
+                k: v / 1e3 / calls
+                for k, v in device_us_by_stream(events).items()}}

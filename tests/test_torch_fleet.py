@@ -93,10 +93,15 @@ def test_default_executor_is_local_at_one_process_only(monkeypatch):
 
     monkeypatch.delenv("HVD_TPU_EXECUTOR", raising=False)
     assert executors.default_executor(0, 1) is tlocal
-    with pytest.raises(ValueError, match="local_executor"):
-        executors.default_executor(0, 2)
+    # More than one process: the cross-rank executor of the eager path.
+    assert executors.default_executor(0, 2) is executors.multihost_executor
     monkeypatch.setenv("HVD_TPU_EXECUTOR", "local")
     assert executors.default_executor(1, 2) is tlocal
+    monkeypatch.setenv("HVD_TPU_EXECUTOR", "multihost")
+    assert executors.default_executor(0, 1) is executors.multihost_executor
+    monkeypatch.setenv("HVD_TPU_EXECUTOR", "mpi")
+    with pytest.raises(ValueError, match="HVD_TPU_EXECUTOR"):
+        executors.default_executor(0, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -416,3 +416,39 @@ def test_core_build_without_a_compiler_raises(monkeypatch):
     monkeypatch.setattr(core_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="C\\+\\+17 compiler"):
         core_build._cxx()
+
+
+# -- the eager engine path ----------------------------------------------------
+
+EAGER_MODULES = (
+    "horovod_tpu_torch.core.device_reduce", "horovod_tpu_torch.core.objects",
+    "horovod_tpu_torch.ops.async_ops", "horovod_tpu_torch.torch",
+    "horovod_tpu_torch.torch.compression", "horovod_tpu_torch.torch.mpi_ops",
+    "horovod_tpu_torch.torch.optimizer", "horovod_tpu_torch.torch.state",
+    "horovod_tpu_torch.tree", "horovod_tpu_torch.relay")
+
+
+@pytest.mark.parametrize("mod", EAGER_MODULES)
+def test_eager_module_is_checked(mod):
+    # Walked by the two import checks above, which it passes.
+    assert mod in _modules()
+    path = os.path.join(REPO, *mod.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) \
+        else path + ".py"
+    test_no_import_statement_names_jax(path)
+
+
+def test_eager_modules_alone_import_no_jax_and_the_binding_names_torch():
+    # The binding's subpackage is named torch; inside it (absolute
+    # imports) "torch" is PyTorch.
+    code = ("import json, sys\n"
+            f"for m in {EAGER_MODULES!r}: __import__(m)\n"
+            "import torch, horovod_tpu_torch.torch.mpi_ops as mo\n"
+            "assert mo.torch is torch and hasattr(mo.torch, 'Tensor')\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert not [m for m in json.loads(out.strip().splitlines()[-1])
+                if _forbidden(m)]
+

@@ -96,3 +96,5 @@ def test_measure_reports_other_kernels_by_op(monkeypatch, tmp_path):
         "aten::to / aten::to": [0.001, 0.5]}
     assert row["top_kernels_by_op"]["sm90_xmma_gemm"] == {
         "aten::linear / aten::mm": 0.025}
+    # Every device event of the trace above runs on stream 7 (its tid).
+    assert row["device_ms_by_stream"] == {"7": 0.037}
