@@ -141,6 +141,41 @@ line each:
                  the reduced gradients against a host f32 sum of both
                  ranks' (rel. L2 <= 1e-6), or on int8 within the sum of
                  the ranks' scales; each rank's launches;
+   train_resume — the 162M step at full width and depth (B = 8, f32
+                 parameters, ``DistributedOptimizer(AdamW)``, NCCL, world
+                 1) as the step function of ``training.elastic_loop``,
+                 each a job of ``python -m horovod_tpu_torch.run -np 1``
+                 (``chip_smoke.py --resume-worker``): token batches seeded
+                 by the step index through ``data.BackgroundLoader`` and
+                 ``data.prefetch_to_device``, ``CheckpointManager(dir,
+                 max_to_keep=2)`` under ``HVD_TPU_CKPT_ASYNC=1`` every 2
+                 steps, the data position in the metadata.  (a) 8 steps
+                 twice (the second without checkpoints): whether the step
+                 is bitwise deterministic on the card; (b) the same under
+                 ``--max-restarts 1 --ckpt-dir`` with rank 0 killed at
+                 step 5: the launcher relaunches from step 3's checkpoint
+                 and attempt 1 runs steps 4-7.  Checks: the restored state
+                 bitwise the state CRC'd at step 3's save; (b)'s losses and
+                 final CRCs equal (a)'s (bitwise when deterministic, else
+                 |dloss| <= 1e-4 and parameter rel. L2 <= 1e-3); launches
+                 12/12/12/25/25 a step in every process; a falling finite
+                 loss.  Prints the checkpoint's bytes, each save's stall and
+                 persist ms, the restore ms, the kill to attempt 1's first
+                 step, step ms before and after, and 3 traced steps;
+   train_elastic_3proc — three engine-only processes on the card
+                 (``--elastic-worker``), each its own ``NativeEngine`` with
+                 the local executor, the 162M widths at depth 2, B = 2, the
+                 same batch on every rank, ``elastic_loop`` with a
+                 checkpoint every step under ``HVD_TPU_ELASTIC=1``,
+                 ``HVD_TPU_CKPT_REPLICATE=1`` and ``HVD_TPU_CKPT_ASYNC=1``;
+                 rank 2 killed at step 3 of 4.  Checks: the survivors keep
+                 their pids, shrink to size 2, restore step 2 from the peer
+                 replica with 0 disk reads and bitwise the state they
+                 CRC'd at its save, end bitwise equal to each other and
+                 (when the step is deterministic) to an uninterrupted
+                 3-rank run; their launches.  Prints the recovery ms (the
+                 victim's last save to the survivors' first step after the
+                 shrink), the replica bytes shipped and the restore ms;
 9. resnet      — the ResNet-50 step of ``python -m
                  horovod_tpu_torch.train_resnet`` at full size (128 images
                  of 224×224×3 on the card, bf16 over f32 parameters,
@@ -155,8 +190,9 @@ line each:
                  kernels on the tensor cores, the two RMSNorm kernels on
                  the CUDA cores) and a line on its design; ``launches`` is
                  the sum over the serve, serve_paged (a-d), router,
-                 serve_fleet (summed over its replicas' reports), train and
-                 train_eager runs, each counted from 0 around its own run
+                 serve_fleet (summed over its replicas' reports), train,
+                 train_eager and train_resume (summed over its processes)
+                 runs, each counted from 0 around its own run
                  (``launches_by_run``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -2089,6 +2125,616 @@ def phase_train_eager_2proc() -> dict:
     return {"reports": reports}
 
 
+# train_resume: the 162M step (full width and depth, B = 8) through
+# training.elastic_loop under the launcher, async checkpoints every 2 steps
+# (max_to_keep 2), 8 steps; the faulted run kills rank 0 at step 5 and
+# resumes from step 3's checkpoint.  Checkpoint directories need ~3
+# checkpoints of 1.95 GB at once: two kept and one persisting.
+RESUME_STEPS, RESUME_EVERY, RESUME_KILL_STEP = 8, 2, 5
+RESUME_SNAP_STEP = 3
+RESUME_DISK_BYTES = 7 * 10**9
+RESUME_TIMEOUT_S = 300.0
+# The tolerance where the step is not deterministic on the card: the f32
+# training bounds of train (loss) and of one step's parameters.
+RESUME_LOSS_ATOL, RESUME_PARAM_REL_L2 = 1e-4, 1e-3
+# train_elastic_3proc: three engine-only processes on the card at the 162M
+# widths, depth 2, B = 2, the same batch on every rank, a checkpoint every
+# step; rank 2 is killed at step 3 of 4.
+ELASTIC_LAYERS, ELASTIC_BATCH, ELASTIC_STEPS, ELASTIC_KILL_STEP = 2, 2, 4, 3
+ELASTIC_TIMEOUT_S = 240.0
+# All three processes on the one card (LOCAL_RANK would name cards 1, 2).
+ELASTIC_DEVICE = "cuda:0"
+ELASTIC_ENV = {"HVD_TPU_ELASTIC": "1", "HVD_TPU_CKPT_REPLICATE": "1",
+               "HVD_TPU_CKPT_ASYNC": "1", "HVD_TPU_HEARTBEAT_MS": "50",
+               "HVD_TPU_HEARTBEAT_TIMEOUT_MS": "2000",
+               "HVD_TPU_ABORT_GRACE_MS": "300",
+               "HVD_TPU_CONNECT_TIMEOUT": "60",
+               "HVD_TPU_RECONFIG_TIMEOUT_MS": "30000"}
+
+
+def _state_crcs(state) -> dict:
+    """CRC32 of every tensor's bytes in a training state tree
+    (``{"model": state_dict, "optim": state_dict}``), keyed by its path."""
+    import zlib
+
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k in sorted(v, key=str):
+                walk(f"{prefix}/{k}", v[k])
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{prefix}/{i}", x)
+        elif isinstance(v, torch.Tensor):
+            out[prefix] = zlib.crc32(v.detach().cpu().contiguous().reshape(
+                -1).view(torch.uint8).numpy().tobytes())
+    walk("", state)
+    return out
+
+
+class _CommitClock:
+    """Each save's stall (the call) and persist time (call to commit, read
+    off ``last_committed_step`` by a thread polling every millisecond)."""
+
+    def __init__(self, mgr):
+        import threading
+
+        self.mgr, self.saves, self._stop = mgr, [], threading.Event()
+        self._save = mgr.save
+        mgr.save = self.save
+        self._t = threading.Thread(target=self._poll, daemon=True)
+        self._t.start()
+
+    def save(self, step, state, **kw):
+        t0 = time.perf_counter()
+        self._save(step, state, **kw)
+        self.saves.append({"step": step, "t0": t0,
+                           "stall_ms": (time.perf_counter() - t0) * 1e3})
+
+    def _poll(self):
+        while not self._stop.is_set():
+            last = self.mgr.last_committed_step()
+            now = time.perf_counter()
+            for s in self.saves:
+                if "persist_ms" not in s and last >= s["step"]:
+                    s["persist_ms"] = (now - s["t0"]) * 1e3
+            time.sleep(0.001)
+
+    def wait_committed(self, step: int, timeout_s: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while self.mgr.last_committed_step() < step:
+            if self.mgr.persist_error() is not None \
+                    or time.monotonic() > deadline:
+                raise AssertionError(f"step {step} never committed: "
+                                     f"{self.mgr.persist_error()}")
+            time.sleep(0.005)
+
+    def report(self) -> list:
+        time.sleep(0.01)
+        self._stop.set()
+        self._t.join()
+        return [{k: v for k, v in s.items() if k != "t0"}
+                for s in self.saves]
+
+
+def resume_worker(ckpt_dir: str, trace_steps: int, save_final: bool,
+                  checkpoints: bool = True) -> None:
+    """One attempt of a ``train_resume`` run (``chip_smoke.py
+    --resume-worker DIR TRACE SAVE_FINAL CHECKPOINTS`` under ``python -m
+    horovod_tpu_torch.run -np 1``): the 162M step as ``elastic_loop``'s
+    step function (with a ``CheckpointManager`` unless ``checkpoints`` is
+    false), token batches through ``data.BackgroundLoader`` and
+    ``data.prefetch_to_device`` seeded by the step index; prints one
+    ``RESUME_REPORT`` JSON line."""
+    from horovod_tpu_torch import basics, checkpoint, data
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.training import elastic_loop
+    from horovod_tpu_torch.utils import trace
+
+    t_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    attempt = int(os.environ.get("HVD_TPU_RESTART_ATTEMPT", "0"))
+    basics.init()
+    try:
+        dev = basics.device()
+        t_init = time.time()
+        cfg = tt.train_config()
+        model, opt = tt.make_trainer(cfg, dev, SEED)
+        torch.cuda.synchronize()
+        t_model = time.time()
+        mgr = checkpoint.CheckpointManager(ckpt_dir, max_to_keep=2) \
+            if checkpoints else None
+        clock = _CommitClock(mgr) if checkpoints else None
+        rep = {"attempt": attempt, "steps": [], "losses": {}, "step_ms": {},
+               "backend": torch.distributed.get_backend(),
+               "resume_path": checkpoint.resume_path(),
+               "start_ts": t_start, "init_s": t_init - t_start,
+               "model_s": t_model - t_init}
+
+        def batches(start):
+            for s in range(start, RESUME_STEPS):
+                rng = np.random.RandomState(SEED + 1 + s)
+                yield s, torch.from_numpy(rng.randint(
+                    0, cfg.vocab_size, (tt.BATCH, tt.SEQ_LEN)))
+
+        pos = {"next": 0, "it": None}
+
+        def state_of():
+            return {"model": model.state_dict(), "optim": opt.state_dict()}
+
+        def step_fn(step, state):
+            if pos["it"] is None or pos["next"] != step:
+                pos["it"] = data.prefetch_to_device(
+                    data.BackgroundLoader(batches(step), depth=2), size=2,
+                    device=dev)
+            s, tokens = next(pos["it"])
+            if s != step:
+                raise AssertionError(f"batch of step {s} at step {step}")
+            t0 = time.perf_counter()
+            loss = float(tt.train_step(model, opt, tokens))
+            t1 = time.perf_counter()
+            if "first_step_ts" not in rep:
+                rep["first_step_ts"] = time.time()
+            rep["steps"].append(step)
+            rep["losses"][step] = loss
+            rep["step_ms"][step] = (t1 - t0) * 1e3
+            pos["next"] = step + 1
+            if attempt == 0 and step == RESUME_KILL_STEP - 1 \
+                    and os.environ.get("HVD_TPU_FAULT_KILL_STEP"):
+                # The kill comes at the next step: let the newest save
+                # commit first, so the relaunch has it to resume from, and
+                # report what this attempt did before it dies.
+                clock.wait_committed(RESUME_SNAP_STEP)
+                torch.cuda.synchronize()
+                rep.update(launches=_launches(), saves=clock.report(),
+                           kill_ts=time.time())
+                print("RESUME_REPORT " + json.dumps(rep), flush=True)
+            return state_of()
+
+        def metadata_fn(step):
+            md = {"data_position": step + 1}
+            if step == RESUME_SNAP_STEP:
+                md["crcs"] = _state_crcs(state_of())
+            return md
+
+        def on_resume(ckpt):
+            rep["restore_ms"] = (time.perf_counter() - t_loop) * 1e3
+            rep["resumed_from"] = ckpt.step
+            rep["restore_crcs_equal"] = \
+                _state_crcs(ckpt.state) == ckpt.metadata.get("crcs")
+            model.load_state_dict(ckpt.state["model"])
+            opt.load_state_dict(ckpt.state["optim"])
+            rep["loaded_crcs_equal"] = \
+                _state_crcs(state_of()) == ckpt.metadata.get("crcs")
+            pos["next"] = ckpt.metadata["data_position"]
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t_loop = time.perf_counter()
+        elastic_loop(step_fn, state_of(), num_steps=RESUME_STEPS,
+                     manager=mgr, checkpoint_every=RESUME_EVERY,
+                     metadata_fn=metadata_fn, on_resume=on_resume)
+        torch.cuda.synchronize()
+        rep["launches"] = _launches()
+        rep["saves"] = clock.report() if clock is not None else []
+        rep["final_crcs"] = _state_crcs(state_of())
+        step_dir = os.path.join(ckpt_dir, f"step_{RESUME_STEPS - 1}")
+        rep["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(step_dir) for f in fs) \
+            if checkpoints else None
+        rep["state_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in _tree_tensors(state_of()))
+        rep["persist_error"] = repr(mgr.persist_error()) if mgr else None
+        if save_final:
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       os.path.join(ckpt_dir, "final_model.pt"))
+        if trace_steps:
+            tokens = next(batches(0))[1].to(dev)
+            with tempfile.TemporaryDirectory() as tmp:
+                b = trace.measure("train_resume_step",
+                                  lambda: tt.train_step(model, opt, tokens),
+                                  trace_steps, tmp)
+            rep["trace"] = {k: b[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "kernels_per_call")}
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        print("RESUME_REPORT " + json.dumps(rep), flush=True)
+    finally:
+        basics.shutdown()
+
+
+def _tree_tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _resume_job(ckpt_dir, *, fault: bool, trace_steps: int = 0,
+                save_final: bool = False, checkpoints: bool = True):
+    """One ``python -m horovod_tpu_torch.run -np 1`` job of
+    :func:`resume_worker`: its reports (one an attempt), the launcher's
+    stderr and exit code."""
+    env = {**os.environ, "HVD_TPU_CKPT_ASYNC": "1",
+           "HVD_TPU_RESTART_BACKOFF": "0.1"}
+    flags = []
+    if fault:
+        env.update({"HVD_TPU_FAULT_KILL_RANK": "0",
+                    "HVD_TPU_FAULT_KILL_STEP": str(RESUME_KILL_STEP)})
+        flags = ["--max-restarts", "1", "--ckpt-dir", ckpt_dir]
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1", *flags,
+         "--", sys.executable, os.path.abspath(__file__), "--resume-worker",
+         ckpt_dir, str(trace_steps), "1" if save_final else "0",
+         "1" if checkpoints else "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=RESUME_TIMEOUT_S)
+    wall_s = time.time() - t0
+    reports = [json.loads(l.split("RESUME_REPORT ", 1)[1])
+               for l in res.stdout.splitlines() if "RESUME_REPORT " in l]
+    if res.returncode != 0 or not reports:
+        raise AssertionError(
+            f"train_resume job (fault={fault}) exited {res.returncode}:\n"
+            f"{res.stdout[-4000:]}\n{res.stderr[-3000:]}")
+    return reports, res.stderr, wall_s
+
+
+def _final_params(ckpt_dir) -> dict:
+    return torch.load(os.path.join(ckpt_dir, "final_model.pt"),
+                      map_location="cpu")
+
+
+def phase_train_resume() -> dict:
+    """The 162M step through a kill and a restart (see the module
+    docstring, ``train_resume``)."""
+    import shutil
+
+    from horovod_tpu_torch import train_transformer as tt
+
+    root = tempfile.mkdtemp(prefix="hvd_train_resume_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < RESUME_DISK_BYTES:
+            raise AssertionError(
+                f"train_resume needs {RESUME_DISK_BYTES} B free under "
+                f"{root} for its checkpoints; {free} B are")
+        runs = {}
+        # clean_1 checkpoints as the faulted run does; clean_2 does not (a
+        # snapshot only copies, so the two runs' steps are the same work).
+        for name, kw in (("clean_1", dict(trace_steps=3, save_final=True)),
+                         ("clean_2", dict(checkpoints=False))):
+            d = os.path.join(root, name)
+            os.makedirs(d, exist_ok=True)
+            runs[name] = _resume_job(d, fault=False, **kw)
+            for entry in os.listdir(d):   # keep final_model.pt only
+                if entry.startswith("step_"):
+                    shutil.rmtree(os.path.join(d, entry))
+        (a1,), _, _ = runs["clean_1"]
+        (a2,), _, _ = runs["clean_2"]
+        deterministic = a1["final_crcs"] == a2["final_crcs"] \
+            and a1["losses"] == a2["losses"]
+        d = os.path.join(root, "faulted")
+        reports, stderr, _ = _resume_job(d, fault=True,
+                                         save_final=not deterministic)
+        if len(reports) != 2 or [r["attempt"] for r in reports] != [0, 1]:
+            raise AssertionError(f"train_resume faulted run: want attempts "
+                                 f"0 and 1, got {reports}\n{stderr[-3000:]}")
+        b0, b1 = reports
+        if "relaunching attempt 1 from checkpoint" not in stderr \
+                or f"step_{RESUME_SNAP_STEP}" not in stderr:
+            raise AssertionError(f"train_resume: the launcher did not "
+                                 f"restart from step {RESUME_SNAP_STEP}:\n"
+                                 f"{stderr[-3000:]}")
+        if b0["steps"] != list(range(RESUME_KILL_STEP)) \
+                or b1.get("resumed_from") != RESUME_SNAP_STEP \
+                or not str(b1["resume_path"]).endswith(
+                    f"step_{RESUME_SNAP_STEP}") \
+                or b1["steps"] != list(range(RESUME_SNAP_STEP + 1,
+                                             RESUME_STEPS)):
+            raise AssertionError(f"train_resume steps: attempt 0 "
+                                 f"{b0['steps']}, attempt 1 "
+                                 f"{b1['steps']} from "
+                                 f"{b1.get('resumed_from')}")
+        if not (b1["restore_crcs_equal"] and b1["loaded_crcs_equal"]):
+            raise AssertionError("train_resume: the restored state is not "
+                                 "bitwise the state saved at step "
+                                 f"{RESUME_SNAP_STEP}")
+        per = _per_step(tt.train_config())
+        for tag, r in (("clean_1", a1), ("clean_2", a2), ("attempt 0", b0),
+                       ("attempt 1", b1)):
+            want = {n: c * len(r["steps"]) for n, c in per.items()}
+            if r["launches"] != want:
+                raise AssertionError(f"train_resume {tag}: launches "
+                                     f"{r['launches']}, want {want}")
+        losses = [a1["losses"][str(s)] for s in range(RESUME_STEPS)]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train_resume losses not finite and "
+                                 f"falling: {losses}")
+        resumed = {s: b1["losses"][s] for s in b1["losses"]}
+        loss_diff = max(abs(resumed[s] - a1["losses"][s]) for s in resumed)
+        if deterministic:
+            agree = b1["final_crcs"] == a1["final_crcs"] and loss_diff == 0
+            param_rel_l2 = 0.0 if agree else None
+        else:
+            mine, ref = _final_params(d), _final_params(
+                os.path.join(root, "clean_1"))
+            param_rel_l2 = max(float((mine[k].float() - ref[k].float()).norm()
+                                     / ref[k].float().norm().clamp_min(1e-30))
+                               for k in ref)
+            agree = loss_diff <= RESUME_LOSS_ATOL \
+                and param_rel_l2 <= RESUME_PARAM_REL_L2
+        if not agree:
+            raise AssertionError(
+                f"train_resume: the resumed run leaves the uninterrupted one "
+                f"(deterministic={deterministic}, max |dloss| {loss_diff}, "
+                f"param rel L2 {param_rel_l2})")
+        if not deterministic:
+            diff_params = sorted(k for k in a1["final_crcs"]
+                                 if a1["final_crcs"][k] != a2["final_crcs"][k])
+        else:
+            diff_params = []
+        before = [a1["step_ms"][str(s)] for s in range(1, RESUME_KILL_STEP)]
+        after = [b1["step_ms"][str(s)]
+                 for s in range(RESUME_SNAP_STEP + 2, RESUME_STEPS)]
+        launches = {n: sum(r["launches"][n] for r in (a1, a2, b0, b1))
+                    for n in per}
+        emit("train_resume", layers=12, batch=tt.BATCH, seq_len=tt.SEQ_LEN,
+             steps=RESUME_STEPS, checkpoint_every=RESUME_EVERY,
+             kill_step=RESUME_KILL_STEP, resumed_from=b1["resumed_from"],
+             backend=a1["backend"], deterministic=deterministic,
+             params_not_equal_across_clean_runs=diff_params[:20],
+             max_abs_loss_diff_resumed_vs_clean=loss_diff,
+             param_rel_l2_resumed_vs_clean=param_rel_l2,
+             losses_clean=losses, losses_resumed=resumed,
+             checkpoint_bytes=a1["checkpoint_bytes"],
+             state_bytes=a1["state_bytes"],
+             saves_clean_1=a1["saves"], saves_attempt_0=b0["saves"],
+             restore_ms=b1["restore_ms"],
+             kill_to_first_step_ms=(b1["first_step_ts"] - b0["kill_ts"])
+             * 1e3,
+             attempt_1_startup_s={
+                 "kill_to_process": b1["start_ts"] - b0["kill_ts"],
+                 "init": b1["init_s"], "model": b1["model_s"]},
+             step_ms_before_kill=before, step_ms_after_resume=after,
+             first_step_after_resume_ms=b1["step_ms"][
+                 str(RESUME_SNAP_STEP + 1)],
+             traced_steps=a1["trace"], launches=launches,
+             launches_per_step=per,
+             max_memory_allocated=a1["max_memory_allocated"])
+        return {"launches": launches, "deterministic": deterministic}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def elastic_worker(rank: int, port: int, n: int, ckpt_dir: str) -> None:
+    """One rank of ``train_elastic_3proc`` (``chip_smoke.py
+    --elastic-worker RANK PORT N DIR``): an engine-only process on
+    ``cuda:0`` with its own ``NativeEngine`` (local executor), the 162M
+    widths at depth 2 through ``elastic_loop`` with a replicated, async
+    ``CheckpointManager``; prints ``STEP`` lines and one
+    ``ELASTIC_REPORT`` JSON line."""
+    from horovod_tpu_torch import checkpoint, dataplane, elastic
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.core import engine as em
+    from horovod_tpu_torch.core.engine import NativeEngine, OP_ALLREDUCE
+    from horovod_tpu_torch.core.executors import local_executor
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.training import elastic_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(ELASTIC_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    eng = NativeEngine(rank, n, executor=local_executor,
+                       coordinator_host="127.0.0.1", coordinator_port=port,
+                       cycle_time_ms=2.0,
+                       bulk_port=dataplane.ensure_listener())
+    elastic.attach(eng)
+    cfg = tt.train_config(num_layers=ELASTIC_LAYERS)
+    model = Transformer(cfg, device=dev)
+    model.load_state_dict(init_params(cfg, SEED))
+    opt = torch.optim.AdamW(model.parameters(), lr=tt.LR,
+                            weight_decay=tt.WEIGHT_DECAY)
+    params = list(model.parameters())
+    rng = np.random.RandomState(SEED + 7)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (ELASTIC_BATCH, tt.SEQ_LEN))).to(dev)
+    mgr = checkpoint.CheckpointManager(ckpt_dir, max_to_keep=2, rank=rank,
+                                       size=1)
+    rep = {"rank": rank, "pid": os.getpid(), "step_fn_calls": 0}
+
+    def state_of():
+        return {"model": model.state_dict(), "optim": opt.state_dict()}
+
+    def step_fn(step, state):
+        rep["step_fn_calls"] += 1
+        e = em.peek_engine()  # re-formed between steps after a shrink
+        opt.zero_grad(set_to_none=True)
+        loss = tt.loss_fn(model, tokens)
+        loss.backward()
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        g = e.synchronize(e.enqueue(f"el.g{step}", flat, OP_ALLREDUCE),
+                          timeout_s=120.0)
+        with torch.no_grad():
+            off = 0
+            for p in params:
+                p.grad.copy_(g[off:off + p.numel()].view_as(p))
+                off += p.numel()
+        opt.step()
+        rep.setdefault("losses", {})[step] = float(loss)
+        print(f"STEP {step} rank={rank} size={e.size} ts={time.time()}",
+              flush=True)
+        return state_of()
+
+    def metadata_fn(step):
+        if step == ELASTIC_KILL_STEP - 1:
+            return {"crcs": _state_crcs(state_of())}
+        return {}
+
+    def on_resume(ckpt):
+        rep["resumed_from"] = ckpt.step
+        rep["restore_ms"] = (time.perf_counter() - rep.pop("_t0")) * 1e3 \
+            if "_t0" in rep else None
+        rep["restore_crcs_equal"] = \
+            _state_crcs(ckpt.state) == ckpt.metadata.get("crcs")
+        model.load_state_dict(ckpt.state["model"])
+        opt.load_state_dict(ckpt.state["optim"])
+
+    @elastic.on_reconfigure
+    def _resized(ev):
+        rep["resize"] = {"epoch": ev.epoch, "new_rank": ev.new_rank,
+                         "new_size": ev.new_size,
+                         "failed_rank": ev.failed_rank,
+                         "ts": time.time()}
+        rep["_t0"] = time.perf_counter()
+
+    save = mgr.save
+
+    def stamped_save(step, state, **kw):
+        save(step, state, **kw)
+        # The injected kill follows the last save of this rank at once.
+        print(f"SAVED {step} rank={rank} ts={time.time()}", flush=True)
+
+    mgr.save = stamped_save
+    _build.reset_launches()
+    checkpoint.reset_disk_read_count()
+    elastic_loop(step_fn, state_of(), num_steps=ELASTIC_STEPS, manager=mgr,
+                 checkpoint_every=1, metadata_fn=metadata_fn,
+                 on_resume=on_resume)
+    torch.cuda.synchronize()
+    from horovod_tpu_torch import replication
+
+    final = em.peek_engine()
+    rep.update(launches=_launches(), now_pid=os.getpid(), size=final.size,
+               disk_reads=checkpoint.disk_read_count(),
+               final_crcs=_state_crcs(state_of()),
+               replication=replication.replication_stats())
+    rep.pop("_t0", None)
+    print("ELASTIC_REPORT " + json.dumps(rep), flush=True)
+    final.shutdown()
+
+
+def _elastic_run(root: str, tag: str, kill: bool) -> list:
+    from horovod_tpu_torch.serving.soak import free_port
+
+    d = os.path.join(root, tag)
+    os.makedirs(d)
+    port = free_port()
+    env = {**os.environ, **ELASTIC_ENV}
+    if kill:
+        env.update({"HVD_TPU_FAULT_KILL_RANK": "2",
+                    "HVD_TPU_FAULT_KILL_STEP": str(ELASTIC_KILL_STEP)})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--elastic-worker",
+         str(r), str(port), "3", d], env={**env, "JAX_PROCESS_ID": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(3)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=ELASTIC_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _elastic_reports(tag, results, ranks) -> dict:
+    reps = {}
+    for r in ranks:
+        rc, out = results[r]
+        line = next((l for l in out.splitlines()
+                     if l.startswith("ELASTIC_REPORT ")), None)
+        if rc != 0 or line is None:
+            raise AssertionError(f"train_elastic_3proc {tag} rank {r} "
+                                 f"exited {rc}:\n{out[-4000:]}")
+        reps[r] = json.loads(line.split(" ", 1)[1])
+    return reps
+
+
+def phase_train_elastic_3proc(deterministic: bool) -> dict:
+    """Three engine-only processes on the card; rank 2 SIGKILLed at step
+    3; the survivors shrink in place and restore from the peer replica
+    (see the module docstring, ``train_elastic_3proc``)."""
+    import shutil
+
+    from horovod_tpu_torch import train_transformer as tt
+
+    root = tempfile.mkdtemp(prefix="hvd_train_elastic_")
+    try:
+        clean = _elastic_reports("clean", _elastic_run(root, "clean", False),
+                                 range(3))
+        faulted = _elastic_run(root, "faulted", True)
+        if faulted[2][0] == 0:
+            raise AssertionError("train_elastic_3proc: rank 2 was not "
+                                 f"killed:\n{faulted[2][1][-3000:]}")
+        reps = _elastic_reports("faulted", faulted, (0, 1))
+        out2 = faulted[2][1]
+        kill_ts = max(float(l.split("ts=")[1]) for l in out2.splitlines()
+                      if l.startswith(f"SAVED {ELASTIC_KILL_STEP - 1} "))
+        per = _per_step(tt.train_config(num_layers=ELASTIC_LAYERS))
+        recovery = []
+        for r, rep in reps.items():
+            want = {n: c * rep["step_fn_calls"] for n, c in per.items()}
+            ok = (rep["pid"] == rep["now_pid"] and rep["size"] == 2
+                  and rep["resize"]["new_size"] == 2
+                  and rep["resize"]["failed_rank"] == 2
+                  and rep.get("resumed_from") == ELASTIC_KILL_STEP - 1
+                  and rep["restore_crcs_equal"] and rep["disk_reads"] == 0
+                  and rep["launches"] == want)
+            if not ok:
+                brief = {k: v for k, v in rep.items() if k != "final_crcs"}
+                raise AssertionError(f"train_elastic_3proc survivor {r}: "
+                                     f"{brief}, launches want {want}")
+            after = [float(l.split("ts=")[1])
+                     for l in faulted[r][1].splitlines()
+                     if l.startswith(f"STEP {ELASTIC_KILL_STEP} ")]
+            recovery.append((min(after) - kill_ts) * 1e3)
+        if reps[0]["final_crcs"] != reps[1]["final_crcs"]:
+            raise AssertionError("train_elastic_3proc: the survivors' final "
+                                 "states differ")
+        vs_clean = reps[0]["final_crcs"] == clean[0]["final_crcs"]
+        if deterministic and not vs_clean:
+            raise AssertionError("train_elastic_3proc: the survivors' final "
+                                 "state is not the uninterrupted run's")
+        launches = {n: sum(rep["launches"][n] for rep in reps.values())
+                    for n in per}
+        emit("train_elastic_3proc", processes=3, layers=ELASTIC_LAYERS,
+             batch_per_rank=ELASTIC_BATCH, seq_len=tt.SEQ_LEN,
+             steps=ELASTIC_STEPS, kill_step=ELASTIC_KILL_STEP,
+             executor="local", resized={r: rep["resize"]
+                                        for r, rep in reps.items()},
+             resumed_from=reps[0]["resumed_from"],
+             disk_reads={r: rep["disk_reads"] for r, rep in reps.items()},
+             restore_ms={r: rep["restore_ms"] for r, rep in reps.items()},
+             recovery_ms=recovery,
+             kill_to_reconfigured_ms={
+                 r: (rep["resize"]["ts"] - kill_ts) * 1e3
+                 for r, rep in reps.items()},
+             final_equal_across_survivors=True,
+             final_equal_to_uninterrupted=vs_clean,
+             replica_bytes_shipped={
+                 r: rep["replication"]["bytes_shipped_direct"]
+                 + rep["replication"]["bytes_shipped_relay"]
+                 for r, rep in reps.items()},
+             replication={r: rep["replication"] for r, rep in reps.items()},
+             losses={r: rep["losses"] for r, rep in reps.items()},
+             launches=launches, launches_per_step=per)
+        return {"launches": launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _is_bypass(plan) -> bool:
     """The adaptive planner's width-1 bypass: no hook, no collective."""
     return (plan is not None and plan["planner"] == "adaptive"
@@ -2187,12 +2833,15 @@ def main() -> int:
         eager = phase_train_eager(train)
     check_norm_rows(norm_rows)
     phase_train_eager_2proc()
+    resume = phase_train_resume()
+    phase_train_elastic_3proc(resume["deterministic"])
     # Launches on the path: the serve, serve_paged (a-d), router,
     # serve_fleet (every replica's serving run), 162M train and train_eager
     # runs, each counted from 0 around its own run.
     runs = {"serve": serve_launches, "serve_paged": paged_launches,
             "router": router_launches, "serve_fleet": fleet_launches,
-            "train": train["launches"], "train_eager": eager["launches"]}
+            "train": train["launches"], "train_eager": eager["launches"],
+            "train_resume": resume["launches"]}
     launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
     entries = []
@@ -2245,5 +2894,13 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--eager-worker"]:
         eager_worker(*(int(a) for a in sys.argv[2:5]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--resume-worker"]:
+        resume_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4] == "1",
+                      sys.argv[5] == "1")
+        sys.exit(0)
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        elastic_worker(int(sys.argv[2]), int(sys.argv[3]),
+                       int(sys.argv[4]), sys.argv[5])
         sys.exit(0)
     sys.exit(main())

@@ -29,58 +29,71 @@ serving (slice 9) on the port's own copy of the native control plane
 handle API of ``ops/async_ops.py`` (``allreduce_async``, ``poll``,
 ``synchronize``, ``barrier``, ...) over the native engine and its
 cross-process executor (``core/executors.py``, ``core/device_reduce.py``),
-the engine's reports, and the ``horovod_tpu_torch.torch`` binding.  The
+the engine's reports, and the ``horovod_tpu_torch.torch`` binding; fault
+tolerance (slice 11): the launcher ``python -m horovod_tpu_torch.run``,
+``checkpoint`` (manifest-committed, async persist, peer-replicated
+restore), ``data`` (sharding, background loading, prefetch to the card),
+the fault injectors and :func:`elastic_loop`.  The
 top-level :func:`synchronize` takes an engine handle (an ``int``);
 ``ops.collective_ops.synchronize`` takes the ``AllreduceHandle`` of
 :func:`grouped_allreduce_async`.  Importing the package creates no process
-group; :func:`init` does.
+group; :func:`init` does.  Names resolve on first use, so the launcher
+(``python -m horovod_tpu_torch.run``) and other standard-library-only
+modules import no torch.
 """
 
 from __future__ import annotations
 
-from horovod_tpu_torch.basics import (NotInitializedError, cache_stats,
-                                      control_plane_stats, coord_state,
-                                      cross_rank, cross_size, failure_report,
-                                      init, is_initialized, local_rank,
-                                      local_size, mpi_threads_supported,
-                                      num_chips, rank, shutdown, size,
-                                      stall_report)
-from horovod_tpu_torch.core.engine import CollectiveError, MembershipChanged
-from horovod_tpu_torch.ops.collective_ops import (
-    allgather, allgather_object, allreduce, allreduce_sparse, alltoall,
-    broadcast, grouped_allreduce, quantized_grouped_allreduce,
-    sparse_to_dense)
-from horovod_tpu_torch.ops.async_ops import (allgather_async,
-                                             allreduce_async, alltoall_async,
-                                             barrier, broadcast_async, poll,
-                                             synchronize)
-from horovod_tpu_torch.ops.compression import Compression
-from horovod_tpu_torch.ops.losses import softmax_cross_entropy
-from horovod_tpu_torch.ops.schedule_plan import overlap_plan
-from horovod_tpu_torch.training import (DistributedOptimizer,
-                                        accumulate_gradients,
-                                        broadcast_object,
-                                        broadcast_optimizer_state,
-                                        broadcast_parameters, master_weights,
-                                        scale_learning_rate)
-from horovod_tpu_torch.utils.device import resolve_device
-
-from horovod_tpu_torch import callbacks  # noqa: E402  (imports training)
+import importlib
 
 __version__ = "0.1.0"
 
-__all__ = [
-    "CollectiveError", "Compression", "DistributedOptimizer",
-    "MembershipChanged", "NotInitializedError", "accumulate_gradients",
-    "allgather", "allgather_async", "allgather_object", "allreduce",
-    "allreduce_async", "allreduce_sparse", "alltoall", "alltoall_async",
-    "barrier", "broadcast", "broadcast_async", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "cache_stats",
-    "callbacks", "control_plane_stats", "coord_state", "cross_rank",
-    "cross_size", "failure_report", "grouped_allreduce", "init",
-    "is_initialized", "local_rank", "local_size", "master_weights",
-    "mpi_threads_supported", "num_chips", "overlap_plan", "poll",
-    "quantized_grouped_allreduce", "rank", "resolve_device",
-    "scale_learning_rate", "shutdown", "size", "softmax_cross_entropy",
-    "sparse_to_dense", "stall_report", "synchronize",
-]
+# Public name -> the module that defines it, imported on first use.
+_ATTR_HOME = {
+    **dict.fromkeys((
+        "NotInitializedError", "cache_stats", "control_plane_stats",
+        "coord_state", "cross_rank", "cross_size", "failure_report", "init",
+        "is_initialized", "local_rank", "local_size",
+        "mpi_threads_supported", "num_chips", "rank", "shutdown", "size",
+        "stall_report"), "horovod_tpu_torch.basics"),
+    **dict.fromkeys(("CollectiveError", "MembershipChanged"),
+                    "horovod_tpu_torch.core.engine"),
+    **dict.fromkeys((
+        "allgather", "allgather_object", "allreduce", "allreduce_sparse",
+        "alltoall", "broadcast", "grouped_allreduce",
+        "quantized_grouped_allreduce", "sparse_to_dense"),
+        "horovod_tpu_torch.ops.collective_ops"),
+    **dict.fromkeys((
+        "allgather_async", "allreduce_async", "alltoall_async", "barrier",
+        "broadcast_async", "poll", "synchronize"),
+        "horovod_tpu_torch.ops.async_ops"),
+    "Compression": "horovod_tpu_torch.ops.compression",
+    "softmax_cross_entropy": "horovod_tpu_torch.ops.losses",
+    "overlap_plan": "horovod_tpu_torch.ops.schedule_plan",
+    **dict.fromkeys((
+        "DistributedOptimizer", "accumulate_gradients", "broadcast_object",
+        "broadcast_optimizer_state", "broadcast_parameters", "elastic_loop",
+        "master_weights", "scale_learning_rate"),
+        "horovod_tpu_torch.training"),
+    "resolve_device": "horovod_tpu_torch.utils.device",
+}
+_SUBMODULES = {"callbacks", "checkpoint", "data"}
+
+__all__ = sorted(set(_ATTR_HOME) | _SUBMODULES)
+
+
+def __getattr__(name: str):
+    home = _ATTR_HOME.get(name)
+    if home is not None:
+        value = getattr(importlib.import_module(home), name)
+    elif name in _SUBMODULES:
+        value = importlib.import_module(f"horovod_tpu_torch.{name}")
+    else:
+        raise AttributeError(
+            f"module 'horovod_tpu_torch' has no attribute {name!r}")
+    globals()[name] = value  # cache: __getattr__ runs once per name
+    return value
+
+
+def __dir__():
+    return sorted(set(__all__) | set(globals()))

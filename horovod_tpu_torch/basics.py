@@ -11,8 +11,9 @@ the JAX mesh: NCCL on ``cuda`` (the default), gloo with ``device="cpu"``.
 :func:`init` reads the process's place in the job from ``RANK`` /
 ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` (``torchrun``), or
 from ``JAX_PROCESS_ID`` / ``JAX_NUM_PROCESSES`` / ``JAX_COORDINATOR_ADDRESS``
-(what ``horovod_tpu/run.py`` exports); with none of them set it is a job of
-one process.  Rendezvous goes through the address it is given
+(what ``horovod_tpu/run.py`` exports; ``python -m horovod_tpu_torch.run``
+exports both sets); with none of them set it is a job of one process.
+Rendezvous goes through the address it is given
 (``init_method``, ``JAX_COORDINATOR_ADDRESS`` as ``tcp://host:port``, or
 ``MASTER_ADDR``/``MASTER_PORT``); a job of one process without one gets a
 file store in a fresh temporary directory, so nothing binds a port.
@@ -212,6 +213,23 @@ def shutdown() -> None:
 
 def is_initialized() -> bool:
     return _topology is not None
+
+
+def _apply_resize(new_rank: int, new_size: int) -> None:
+    """Elastic membership update (``elastic.reconfigure``): republish
+    ``rank()``/``size()`` for the surviving membership so data sharding,
+    rank-0 gating and LR scaling see the new world.  A no-op before
+    :func:`init` (engine-only workers track membership through the engine
+    itself).  The process groups are left as formed: a
+    ``torch.distributed`` group cannot re-form in place, so in-place
+    elastic mode serves engine-only workers, and jobs on process groups
+    keep the launcher's full restart (``--max-restarts``)."""
+    global _topology
+    with _lock:
+        if _topology is None:
+            return
+        _topology = dataclasses.replace(_topology, rank=new_rank,
+                                        size=new_size)
 
 
 def _topo() -> Topology:

@@ -23,16 +23,19 @@ corrected one of "Accurate, Large Minibatch SGD" §2.1 and nothing is
 rescaled; with ``False`` each ``momentum_buffer`` is scaled by old/new on
 a jump, which reproduces the reference's uncorrected Keras trajectory.
 
-The JAX package's ``PreemptionCheckpointCallback`` waits for the port's
-checkpoint manager and fault hooks.
+:class:`PreemptionCheckpointCallback` ties a callback loop to the fault
+clock and to a ``checkpoint.CheckpointManager``, as the JAX package's
+does.
 """
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
-from horovod_tpu_torch import basics, training
+from horovod_tpu_torch import basics, faults, training
 from horovod_tpu_torch.ops import collective_ops
 
 
@@ -215,3 +218,63 @@ def allreduce_metrics(logs: dict) -> dict:
     out = dict(logs)
     MetricAverageCallback().on_epoch_end(0, None, out)
     return out
+
+
+class PreemptionCheckpointCallback(Callback):
+    """Elastic-training glue for callback-driven loops.
+
+    Three duties, all at step granularity:
+
+    * advance the fault-injection clock (``faults.step``) so injected
+      kills and stalls fire deterministically in callback loops;
+    * on ``checkpoint.preemption_requested()`` (SIGTERM from the
+      launcher's drain), synchronously save a complete checkpoint through
+      ``manager`` and exit 0 — the supervisor then knows the state is
+      durable;
+    * optionally checkpoint every ``save_every_n_batches`` batches in the
+      background (committed at the next boundary, see
+      ``CheckpointManager``).
+
+    ``metadata_fn(step) -> dict`` supplies the resume record stored
+    alongside each save.  The state handed to the hooks is what the
+    manager saves: a tree such as ``{"model": model.state_dict(),
+    "optim": opt.state_dict()}``.
+    """
+
+    def __init__(self, manager, *, save_every_n_batches: int | None = None,
+                 metadata_fn=None, exit_on_preemption: bool = True):
+        from horovod_tpu_torch import checkpoint as _checkpoint
+
+        self.manager = manager
+        self.save_every_n_batches = save_every_n_batches
+        self.metadata_fn = metadata_fn
+        self.exit_on_preemption = exit_on_preemption
+        self._checkpoint = _checkpoint
+        self._step = 0
+        _checkpoint.install_preemption_handler()
+
+    def _metadata(self) -> dict:
+        md = {"step": self._step}
+        if self.metadata_fn is not None:
+            md.update(self.metadata_fn(self._step))
+        return md
+
+    def on_batch_begin(self, batch: int, state):
+        faults.step(self._step)
+        if self._checkpoint.preemption_requested():
+            self.manager.save(self._step, state, metadata=self._metadata())
+            self.manager.drain()
+            if self.exit_on_preemption:
+                sys.exit(0)
+            return state
+        if (self.save_every_n_batches
+                and self._step % self.save_every_n_batches == 0
+                and self._step > 0):
+            self.manager.save(self._step, state, metadata=self._metadata(),
+                              background=True)
+        self._step += 1
+        return state
+
+    def on_epoch_end(self, epoch: int, state, logs: dict | None = None):
+        self.manager.save(self._step, state, metadata=self._metadata())
+        return state

@@ -26,11 +26,14 @@ JAX package.  Reconfiguration is bounded by
 re-rendezvous that cannot complete, falls back to the restartable exit,
 so nothing blocks forever.
 
-The engine re-forms; a ``torch.distributed`` process group cannot, so
-this module serves engine-only processes (the serving fleet) and leaves
-:mod:`horovod_tpu_torch.basics` as it is.  Re-forming a training job's
-process group after a resize is the elastic training loop's, still to be
-ported.
+:func:`reconfigure` also republishes ``rank()``/``size()`` through
+``basics._apply_resize`` and fires every :func:`on_reconfigure` callback
+(data re-sharding and LR re-scaling hooks); :func:`resize_event` reports
+the newest change.  The engine re-forms; a ``torch.distributed`` process
+group cannot, so in-place elastic mode serves engine-only processes (the
+serving fleet, ``training.elastic_loop`` over the engine's collectives),
+and a job on process groups (NCCL, gloo) keeps the launcher's full
+restart from its newest checkpoint.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import struct
 import threading
 import time
 import zlib
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 from horovod_tpu_torch.core import engine as _engine_mod
 from horovod_tpu_torch.utils import env
@@ -58,8 +61,8 @@ _FRAME_JOIN_ACK = 9
 
 @dataclasses.dataclass(frozen=True)
 class ResizeEvent:
-    """One applied membership change — what :func:`reconfigure`
-    returns."""
+    """One applied membership change — what :func:`reconfigure` returns
+    and what :func:`on_reconfigure` callbacks receive."""
 
     epoch: int
     old_rank: int
@@ -94,6 +97,35 @@ class JoinTicket(NamedTuple):
     assigned_rank: int
 
 
+def enabled() -> bool:
+    """True when in-place elastic recovery is on (``HVD_TPU_ELASTIC=1``)."""
+    return env.elastic_enabled()
+
+
+_callbacks: list[Callable[[ResizeEvent], None]] = []
+_last_event: ResizeEvent | None = None
+
+
+def on_reconfigure(callback: Callable[[ResizeEvent], None]):
+    """Register ``callback(event)`` to run after every successful
+    :func:`reconfigure` — the hook for re-sharding data and re-scaling the
+    learning rate to the new ``size()``.  Usable as a decorator; returns
+    the callback."""
+    _callbacks.append(callback)
+    return callback
+
+
+def resize_event() -> ResizeEvent | None:
+    """The most recent membership change: a pending (un-acked) event
+    published by a stopped engine takes precedence, else the last event
+    applied by :func:`reconfigure`, else ``None`` while the membership has
+    been stable."""
+    raw = _engine_mod.resize_event()
+    if raw is not None:
+        return ResizeEvent(**raw)
+    return _last_event
+
+
 def attach(eng) -> None:
     """Register an explicitly-constructed :class:`NativeEngine` as the
     process's active engine so :func:`reconfigure` can find and re-form
@@ -115,7 +147,9 @@ def reconfigure(eng=None) -> ResizeEvent:
     the underlying connect error propagates and the supervisor's
     full-restart path takes over.
 
-    Returns the applied :class:`ResizeEvent`."""
+    Returns the applied :class:`ResizeEvent` after firing every
+    :func:`on_reconfigure` callback."""
+    global _last_event
     if eng is None:
         eng = _engine_mod.peek_engine()
     if eng is None:
@@ -216,6 +250,9 @@ def reconfigure(eng=None) -> ResizeEvent:
             # engine and its absorbed peer sockets can finally go.
             eng.shutdown()
     _engine_mod.replace_engine(eng, new_eng)
+    from horovod_tpu_torch import basics as _basics
+
+    _basics._apply_resize(ev.new_rank, ev.new_size)
     # Peer-replicated checkpoint shards held in host memory stay valid
     # across a reconfiguration THIS process participated in: re-stamp them
     # to the new epoch so a disk-free restore can still use them.  A
@@ -245,6 +282,9 @@ def reconfigure(eng=None) -> ResizeEvent:
             or ctor.get("coordinator_host")
             or os.environ.get("HVD_TPU_COORDINATOR_HOST", "127.0.0.1"),
             new_eng.bound_port or ev.new_coord_port, ev.epoch)
+    _last_event = ev
+    for cb in _callbacks:
+        cb(ev)
     return ev
 
 

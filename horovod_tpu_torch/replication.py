@@ -22,9 +22,25 @@ weights over the bulk data plane.
   membership epoch (``elastic.reconfigure`` calls it), and ``reshard``
   re-ships them to the new ring partner under ``HVD_TPU_CKPT_REPLICATE``.
 
-Not ported yet, with checkpointing: the sharded ``put`` of a checkpoint
-across the membership and the restore agreement over inventory views
-(``send_inventory``, ``ship_missing``); ``drain`` ignores their views.
+The checkpoint half (``checkpoint.CheckpointManager`` under
+``HVD_TPU_CKPT_REPLICATE=1``):
+
+* ``cut_shards`` cuts an encoded blob into equal BYTE ranges (``cut =
+  ceil(total/N)``, shard *i* = bytes ``[i*cut, (i+1)*cut)``); ``put``
+  keeps shard ``rank`` locally and ships that one shard to the ring
+  partner ``(rank+1) % size``, so any single rank loss leaves a complete
+  shard set among the survivors.  Single-rank jobs refuse (the disk has
+  the data).
+* The restore agreement: every rank broadcasts an *inventory* view
+  (``send_inventory``: which shards of which steps it holds, at which
+  cut), ``elect`` picks the newest step with a COMPLETE shard set across
+  the union of announced inventories (``inventories``), ``ship_missing``
+  has the lowest-rank holder of each shard stream it to every rank that
+  lacks it, and ``assemble`` reassembles the byte ranges for
+  ``decode_snapshot``.  A torn or incomplete set is never restored.
+
+Sharded reassembly assumes the data-parallel invariant: every rank's
+snapshot of a step encodes to the same byte stream.
 :func:`note_disk_restore` counts restores that fell through to disk, the
 number a serving joiner reports as ``disk_reads``.
 """
@@ -68,6 +84,7 @@ _shards: dict[tuple[int, int], ShardEntry] = {}
 # Newest step the control plane has acknowledged accepting (relay/enqueue
 # succeeded).  Observability only — an ack is NOT end-to-end delivery.
 _last_acked_step: int = -1
+_puts: int = 0
 _drained: int = 0
 _direct_shards: int = 0
 _relay_shards: int = 0
@@ -78,11 +95,14 @@ _disk_restores: int = 0
 # has no bulk listener this epoch, skip the ticket round-trip and relay.
 _no_bulk: set[tuple[int, int]] = set()
 
-# A relay shard is a magic-prefixed metadata header plus the byte range;
-# anything else in the shard inbox (the JAX package's restore-agreement
-# views, say) is ignored.
+# Restore-time agreement messages ride the same SHARD_PUT relay as the
+# fallback shards: an inventory view is a magic-prefixed pickled dict
+# ``{step: {"cut": int, "total": int, "shards": [indices]}}``; a relay
+# shard is a magic-prefixed metadata header plus the byte range.
+_VIEW_MAGIC = b"\x00hvdview2\x00"
 _WRAP_MAGIC = b"\x00hvdshard2\x00"
 _WRAP_HDR = struct.Struct("<iiqqI")  # shard_index, src_rank, cut, total, crc
+_inventories: dict[int, tuple[dict, int]] = {}  # rank -> (inventory, epoch)
 
 
 def enabled() -> bool:
@@ -197,6 +217,17 @@ def tensor_crcs(state: dict) -> dict[str, int]:
             for k, v in sorted(state.items())}
 
 
+def cut_shards(blob: bytes, n: int) -> tuple[int, list[bytes]]:
+    """Equal byte-range partition: ``(cut_size, shards)``.  Fewer than
+    ``n`` shards come back for blobs smaller than ``n`` bytes — empty
+    shards are never materialized, and ``n_shards(total, cut)`` is how
+    every holder derives the complete-set size."""
+    total = len(blob)
+    cut = max(1, -(-total // max(n, 1)))
+    return cut, [blob[i * cut:(i + 1) * cut]
+                 for i in range(n_shards(total, cut))]
+
+
 def n_shards(total_len: int, cut_size: int) -> int:
     """Shard count implied by a (total, cut) pair — ceil(total/cut)."""
     if cut_size <= 0:
@@ -237,6 +268,13 @@ def absorb_remote_shard(*, owner: int, step: int, epoch: int,
             _drained += 1
         _prune_locked()
     return True
+
+
+def have_shards(step: int, epoch: int) -> list[int]:
+    """Sorted shard indices held locally for (step, epoch)."""
+    with _lock:
+        return sorted(i for (s, i), e in _shards.items()
+                      if s == step and e.epoch == epoch)
 
 
 # -- shipping ---------------------------------------------------------------
@@ -317,10 +355,39 @@ def ship_blob(eng, dst: int, step: int, blob: bytes) -> str | None:
     return _ship_shard(eng, dst, int(step), 0, len(blob), len(blob), blob)
 
 
+def put(step: int, state: Any, metadata: dict | None = None,
+        eng: "core_engine.NativeEngine | None" = None) -> bool:
+    """Shard a snapshot across the membership: keep shard ``rank``
+    locally, ship that one shard to the ring partner.  Returns True when
+    the shard reached a transport (direct or relay) or this rank had no
+    shard to ship (tiny blob); single-rank jobs and a dead plane return
+    False — the disk path still has the data."""
+    global _puts
+    eng = eng or core_engine.peek_engine()
+    if eng is None or eng.size <= 1:
+        return False
+    blob = encode_snapshot(step, state, metadata)
+    cut, shards = cut_shards(blob, eng.size)
+    total = len(blob)
+    if eng.rank >= len(shards):
+        return True  # blob smaller than the membership: others cover it
+    mine = shards[eng.rank]
+    absorb_remote_shard(owner=eng.rank, step=int(step), epoch=eng.epoch,
+                        shard_index=eng.rank, cut_size=cut, total_len=total,
+                        payload=mine, via="local")
+    path = _ship_shard(eng, target_rank(eng.rank, eng.size), int(step),
+                       eng.rank, cut, total, mine)
+    if path is not None:
+        with _lock:
+            _puts += 1
+    return path is not None
+
+
 def drain(eng: "core_engine.NativeEngine | None" = None) -> int:
     """Pull everything waiting in the native shard inbox into this module
-    — relayed shards into the store — and fold in acks.  Returns shards
-    absorbed.  (Direct-stream shards bypass this path: the data-plane receive thread lands them in
+    — relayed shards into the store, inventory views into the agreement
+    table — and fold in acks.  Returns shards absorbed.  (Direct-stream
+    shards bypass this path: the data-plane receive thread lands them in
     the store the moment they pass CRC.)"""
     global _last_acked_step
     eng = eng or core_engine.peek_engine()
@@ -332,6 +399,14 @@ def drain(eng: "core_engine.NativeEngine | None" = None) -> int:
         if item is None:
             break
         owner, step, epoch, payload = item
+        if payload.startswith(_VIEW_MAGIC):
+            try:
+                inv = pickle.loads(payload[len(_VIEW_MAGIC):])
+            except Exception:
+                continue  # torn view: the sender will look empty, disk wins
+            with _lock:
+                _inventories[owner] = (inv, epoch)
+            continue
         if payload.startswith(_WRAP_MAGIC):
             off = len(_WRAP_MAGIC)
             try:
@@ -348,15 +423,14 @@ def drain(eng: "core_engine.NativeEngine | None" = None) -> int:
                                    via="relay"):
                 count += 1
             continue
-        # Unknown payload (an agreement view, fuzz): ignore rather than
-        # guess at a decode.
+        # Unknown payload (fuzz): ignore rather than guess at a decode.
     for _owner, _tgt, step, _epoch in eng.shard_acks():
         with _lock:
             _last_acked_step = max(_last_acked_step, step)
     return count
 
 
-# -- restore from the local store --------------------------------------------
+# -- restore agreement ------------------------------------------------------
 
 
 def local_inventory(epoch: int) -> dict:
@@ -374,6 +448,32 @@ def local_inventory(epoch: int) -> dict:
         for d in inv.values():
             d["shards"].sort()
         return inv
+
+
+def send_inventory(eng: "core_engine.NativeEngine | None" = None) -> dict:
+    """Broadcast this rank's inventory view to every peer and PIN it as
+    this rank's own announced view — election must run on what was
+    announced, not on a store that kept absorbing in-flight shards, or
+    ranks would elect from different worldviews."""
+    eng = eng or core_engine.peek_engine()
+    if eng is None or eng.size <= 1:
+        return {}
+    inv = local_inventory(eng.epoch)
+    with _lock:
+        _inventories[eng.rank] = (inv, eng.epoch)
+    payload = _VIEW_MAGIC + pickle.dumps(inv, protocol=_PICKLE)
+    tag = max((int(s) for s in inv), default=0)
+    for r in range(eng.size):
+        if r != eng.rank:
+            eng.shard_put(r, max(tag, 0), payload)
+    return inv
+
+
+def inventories(epoch: int) -> dict[int, dict]:
+    """Per-rank announced inventories stamped with *this* epoch (stale-
+    epoch views are invisible, like stale shards)."""
+    with _lock:
+        return {r: inv for r, (inv, e) in _inventories.items() if e == epoch}
 
 
 def elect(invs: dict[int, dict]) -> dict | None:
@@ -403,6 +503,41 @@ def elect(invs: dict[int, dict]) -> dict | None:
                     "n_shards": need,
                     "holders": {i: sorted(holders[i]) for i in range(need)}}
     return best
+
+
+def ship_missing(election: dict,
+                 eng: "core_engine.NativeEngine | None" = None) -> int:
+    """Execute this rank's slice of the deterministic transfer plan: for
+    every shard whose LOWEST-rank announced holder is this rank, stream it
+    (direct -> relay) to each rank whose announced inventory lacks it.
+    Every rank derives the same plan from the same election + views, so
+    each transfer has exactly one sender."""
+    eng = eng or core_engine.peek_engine()
+    if eng is None:
+        return 0
+    invs = inventories(eng.epoch)
+    step, cut, total = (election["step"], election["cut_size"],
+                        election["total_len"])
+    shipped = 0
+    for i in range(election["n_shards"]):
+        holders = election["holders"].get(i, [])
+        if not holders or holders[0] != eng.rank:
+            continue
+        with _lock:
+            entry = _shards.get((step, i))
+        if entry is None or entry.cut_size != cut \
+                or entry.total_len != total:
+            continue  # announced it but lost it: receivers fall to disk
+        for r in range(eng.size):
+            if r == eng.rank:
+                continue
+            rinv = invs.get(r, {}).get(step)
+            if rinv is not None and rinv.get("cut") == cut \
+                    and i in rinv.get("shards", []):
+                continue  # already holds it
+            if _ship_shard(eng, r, step, i, cut, total, entry.payload):
+                shipped += 1
+    return shipped
 
 
 def assemble(election: dict, epoch: int) -> bytes | None:
@@ -474,12 +609,14 @@ def reshard(eng: "core_engine.NativeEngine | None" = None) -> int:
 
 
 def clear() -> None:
-    global _last_acked_step, _drained, _direct_shards, _relay_shards
+    global _last_acked_step, _puts, _drained, _direct_shards, _relay_shards
     global _direct_bytes, _relay_bytes, _disk_restores
     with _lock:
         _shards.clear()
+        _inventories.clear()
         _no_bulk.clear()
         _last_acked_step = -1
+        _puts = 0
         _drained = 0
         _direct_shards = 0
         _relay_shards = 0
@@ -509,6 +646,7 @@ def stats() -> dict:
             "steps_held": steps_held,
             "newest_step": steps_held[-1] if steps_held else -1,
             "last_acked_step": _last_acked_step,
+            "puts": _puts,
             "drained": _drained,
         }
 

@@ -47,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from horovod_tpu_torch import dataplane, elastic, replication
+from horovod_tpu_torch import dataplane, elastic, faults, replication
 from horovod_tpu_torch.core import engine as em
 from horovod_tpu_torch.core.engine import (OP_ALLREDUCE, MembershipChanged,
                                            NativeEngine)
@@ -176,6 +176,21 @@ def _ship(eng, dst: int, backend) -> dict:
     return out
 
 
+def _leave(eng) -> None:
+    """The last collective of a drained fleet, after which a replica may
+    exit.  The coordinator first stops admitting joins (it closes its
+    listen socket), then every replica meets in ``serving.leave``.  A join
+    admitted before that point broadcasts its RECONFIG ahead of the
+    coordinator's ``serving.leave`` on every worker's ordered stream, so
+    every replica's leave fails with ``MembershipChanged`` and the fleet
+    re-forms with the joiner: no replica can exit while another re-forms
+    around it.  A joiner that knocks after the leave finds no listener."""
+    if eng.rank == 0:
+        eng.detach_listener()
+    h = eng.enqueue("serving.leave", np.zeros(1, np.float32), OP_ALLREDUCE)
+    eng.synchronize(h)
+
+
 def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
                  info: dict) -> dict:
     """Multi-replica serve loop: each rank submits its own arrival stream
@@ -187,6 +202,8 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
     rank, so poll() flips true after the same tick fleet-wide.
     Membership changes reconfigure in place; on a grow, the joiner's ring
     neighbour donates the weights over the data plane (``info["shipped"]``).
+    A drain that a grow overtakes is void (see :func:`_leave`): the fleet,
+    joiner included, serves on and drains again.
     ``info["first_token_t"]`` is the engine-clock time of this replica's
     first token."""
     arrivals = loadgen.make_arrivals(w)
@@ -227,6 +244,8 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
             if drained_h is not None and \
                     serving.collective.poll(drained_h):
                 serving.collective.synchronize(drained_h)
+                faults.on_drain(serving.collective.rank)
+                _leave(serving.collective)
                 break
         except MembershipChanged:
             ev = elastic.reconfigure()

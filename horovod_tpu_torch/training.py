@@ -12,6 +12,8 @@ interface of ``horovod_tpu/torch/optimizer.py``.
 * :func:`master_weights` keeps parameters resident in bf16 and steps an
   f32 master copy; :func:`accumulate_gradients` runs microbatches through
   one backward each and leaves the mean gradient.
+* :func:`elastic_loop` drives a step function with the fault hooks,
+  checkpoints, resume and in-place elastic recovery.
 
 Averaging gradients (not summing them) keeps hyperparameters comparable to
 training on one card; scale the learning rate by ``num_chips()`` for the
@@ -21,6 +23,8 @@ linear-scaling recipe.
 from __future__ import annotations
 
 import pickle
+import sys
+import warnings
 
 import torch
 from torch import nn
@@ -277,9 +281,25 @@ class _DistributedOptimizer:
         return sd
 
     def load_state_dict(self, state_dict):
+        """Load a ``state_dict``, across compression modes as the JAX
+        package's checkpoint restore migrates ``DistributedState`` <->
+        ``DistributedEFState``: a state saved without the int8 wire's
+        residuals starts them fresh (zero), and one saved with them into
+        an optimizer without the int8 wire drops them; both with a
+        warning."""
         state_dict = dict(state_dict)
+        saved_ef = "error_feedback" in state_dict
         errors = state_dict.pop("error_feedback", None)
         self._opt.load_state_dict(state_dict)
+        if self._int8 and not saved_ef:
+            warnings.warn(
+                "restored a checkpoint saved without int8 error feedback "
+                "into an EF optimizer: residuals initialized to zero (fresh "
+                "EF start)")
+        elif saved_ef and not self._int8 and errors is not None:
+            warnings.warn(
+                f"restored a checkpoint saved with int8 error feedback into "
+                f"a plain optimizer: {len(errors)} residual(s) dropped")
         if self._int8:
             self._errors = None if errors is None else [
                 e.to(self._params[0].device) for e in errors]
@@ -490,3 +510,131 @@ def accumulate_gradients(loss_fn, batch, num_microbatches: int):
         loss = loss.detach()
         total = loss if total is None else total + loss
     return total * seed
+
+
+def elastic_loop(step_fn, state, *, num_steps: int, manager=None,
+                 checkpoint_every: int = 1, metadata_fn=None,
+                 resume: bool = True, on_resume=None):
+    """Drive ``step_fn`` with fault hooks and preemption-safe checkpoints
+    — counterpart of the JAX package's ``training.elastic_loop``.
+
+    Each step runs ``state = step_fn(step, state)`` after advancing the
+    fault-injection clock (``faults.step``); every ``checkpoint_every``
+    completed steps (and after the last) the ``manager``
+    (``checkpoint.CheckpointManager``) records a complete checkpoint; a
+    preemption signal drains a final checkpoint and exits 0, so ``python
+    -m horovod_tpu_torch.run`` knows the state is durable.  ``state`` is a
+    tree the manager can save: for a torch model, ``{"model":
+    model.state_dict(), "optim": opt.state_dict()}``, returned anew by
+    ``step_fn`` and loaded back into the live objects by ``on_resume``.
+
+    With ``resume=True`` (default) the loop first restores the newest
+    complete checkpoint (its tensors on the devices of ``state``'s) and
+    continues from the step after it — restart equals continuation.
+    ``on_resume(ckpt)`` (a ``checkpoint.ElasticCheckpoint``) re-seats
+    whatever lives outside ``state``: the model's and optimizer's
+    tensors, the data position from the resume metadata.
+
+    Under ``HVD_TPU_ELASTIC=1`` a ``MembershipChanged`` from a step — a
+    peer died and the survivors shrank, or a rank rejoined — is recovered
+    without leaving the process: ``elastic.reconfigure()`` re-forms the
+    engine (and fires ``on_reconfigure`` callbacks), the loop restores
+    the last complete checkpoint and continues from the step after it;
+    with no manager, the aborted step replays.  This serves jobs whose
+    collectives run on the native engine; a job on ``torch.distributed``
+    groups cannot re-form them in place and takes the launcher's full
+    restart.  Without elastic mode the signal propagates like any failure.
+
+    Returns the final state.
+    """
+    from horovod_tpu_torch import checkpoint as _checkpoint
+    from horovod_tpu_torch import faults as _faults
+    from horovod_tpu_torch import replication as _replication
+    from horovod_tpu_torch.core.engine import MembershipChanged as _Resized
+
+    def _restore_latest(manager, state):
+        # A peer can die DURING the restore agreement: reconfigure and
+        # retry at the new epoch instead of aborting a recoverable job.
+        while True:
+            try:
+                return manager.restore_latest(template=state)
+            except _Resized:
+                from horovod_tpu_torch import elastic as _elastic
+
+                if not _elastic.enabled():
+                    raise
+                _elastic.reconfigure()
+
+    start_step = 0
+    if manager is not None:
+        _checkpoint.install_preemption_handler()
+        if resume:
+            ckpt = _restore_latest(manager, state)
+            if ckpt is not None:
+                state = ckpt.state
+                start_step = ckpt.step + 1
+                if on_resume is not None:
+                    on_resume(ckpt)
+
+    def _metadata(step):
+        md = {"step": step}
+        if metadata_fn is not None:
+            md.update(metadata_fn(step))
+        return md
+
+    def _drain_exit(step, state):
+        if step >= 0:  # step -1 == preempted before any step completed
+            manager.save(step, state, metadata=_metadata(step))
+        manager.drain()
+        sys.exit(0)
+
+    step = start_step
+    while step < num_steps:
+        if manager is not None and _checkpoint.preemption_requested():
+            _drain_exit(step - 1, state)
+        if _replication.enabled():
+            # Pump relayed shards into the host-memory replica store every
+            # step: a restore after a peer dies can only use what this
+            # rank already drained.
+            _replication.drain()
+        _faults.step(step)
+        try:
+            state = step_fn(step, state)
+        except _Resized:
+            from horovod_tpu_torch import elastic as _elastic
+
+            if not _elastic.enabled():
+                raise
+            # In-place recovery: re-form the engine under the new
+            # membership, then resume from the last complete checkpoint so
+            # every surviving rank re-enters the step sequence at the same
+            # point with matching collective names.
+            _elastic.reconfigure()
+            if manager is not None:
+                ckpt = _restore_latest(manager, state)
+                if ckpt is not None:
+                    state = ckpt.state
+                    step = ckpt.step + 1
+                    if on_resume is not None:
+                        on_resume(ckpt)
+                    continue
+            # No checkpoint to rewind to: the failed step's collectives
+            # were aborted before completing, so replaying it is safe.
+            continue
+        except Exception:
+            # A peer that drained on the same preemption signal tears the
+            # collectives down under us; when OUR flag is up too, that
+            # failure IS the drain.  Anything else propagates.
+            if manager is not None and _checkpoint.preemption_requested():
+                _drain_exit(step - 1, state)
+            raise
+        if manager is not None:
+            if _checkpoint.preemption_requested():
+                _drain_exit(step, state)
+            if (step + 1) % max(checkpoint_every, 1) == 0 \
+                    or step == num_steps - 1:
+                manager.save(step, state, metadata=_metadata(step))
+        step += 1
+    if manager is not None:
+        manager.drain()
+    return state

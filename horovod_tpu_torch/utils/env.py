@@ -1,6 +1,7 @@
 """Environment knobs the port reads: tensor fusion, gradient overlap, the
 device headroom, ``HVD_TPU_SERVE_*``, and those of the native core, its
-elastic membership and its bulk data plane.
+elastic membership, checkpointing, the coordinator tree and the bulk data
+plane.
 
 Own copy of those readers of ``horovod_tpu/utils/env.py``, with the same
 names, defaults and parsing:
@@ -329,6 +330,52 @@ def ckpt_replicate() -> bool:
     from the current membership epoch survives (replication.py)."""
     raw = _get("CKPT_REPLICATE")
     return bool(raw) and raw not in ("0", "false", "False")
+
+
+def ckpt_async() -> bool:
+    """``HVD_TPU_CKPT_ASYNC`` — split checkpointing into *snapshot*
+    (device->host at the step barrier) and *persist* (a background thread
+    writes the payload and the ``_COMMIT`` manifest).  Default off:
+    ``CheckpointManager.save`` commits synchronously."""
+    raw = _get("CKPT_ASYNC")
+    return bool(raw) and raw not in ("0", "false", "False")
+
+
+def ckpt_staleness_steps() -> int:
+    """``HVD_TPU_CKPT_STALENESS_STEPS`` — bound on the async persist queue:
+    a save waits while this many snapshots are still persisting.  0
+    (default) leaves the queue unbounded."""
+    raw = _get("CKPT_STALENESS_STEPS")
+    try:
+        return max(0, int(raw)) if raw not in (None, "") else 0
+    except ValueError:
+        return 0
+
+
+DEFAULT_TREE_FANOUT = 64
+DEFAULT_TREE_THRESHOLD = 256
+
+
+def tree_enable() -> bool:
+    """``HVD_TPU_TREE_ENABLE`` — opt into the hierarchical coordinator tree
+    (default off); even then it activates only at :func:`tree_threshold`
+    ranks and above."""
+    raw = _get("TREE_ENABLE")
+    return bool(raw) and raw not in ("0", "false", "False")
+
+
+def tree_fanout() -> int:
+    """``HVD_TPU_TREE_FANOUT`` — worker ranks per aggregator group
+    (default 64; values < 2 deactivate the tree)."""
+    raw = _get("TREE_FANOUT")
+    return int(raw) if raw not in (None, "") else DEFAULT_TREE_FANOUT
+
+
+def tree_threshold() -> int:
+    """``HVD_TPU_TREE_THRESHOLD`` — job size at which an enabled tree
+    activates (default 256)."""
+    raw = _get("TREE_THRESHOLD")
+    return int(raw) if raw not in (None, "") else DEFAULT_TREE_THRESHOLD
 
 
 DEFAULT_BULK_CHUNK_BYTES = 1 << 20

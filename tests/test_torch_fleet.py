@@ -620,6 +620,54 @@ def test_fleet_cli_joiner_clones_and_serves_alike():
     assert len({tuple(r["probe"]) for r in reps}) == 1
 
 
+def test_fleet_cli_join_landing_in_the_drain_reforms_the_fleet():
+    # A join admitted between the founders' drain rendezvous and their
+    # exit: the coordinator is held there by the drain-hold injector, and
+    # the joiner starts only once it is held.  The drain is void, the
+    # fleet re-forms at three, the joiner pulls the weights and serves
+    # its own traffic, and every replica ends with its report.
+    import json
+
+    port = soak.free_port()
+    env = {**os.environ, **soak.FLEET_ENV,
+           "HVD_TPU_COORDINATOR_PORT": str(port),
+           "HVD_TPU_SERVE_BACKEND": "stub", "HVD_TPU_SERVE_QPS": "10",
+           "HVD_TPU_SERVE_DURATION_S": "1",
+           "HVD_TPU_FAULT_DRAIN_HOLD_RANK": "0",
+           "HVD_TPU_FAULT_DRAIN_HOLD_MS": "15000"}
+    argv = [sys.executable, "-m", "horovod_tpu_torch.serving", "--probe", "4"]
+    fleet = [soak.Replica(argv, {**env, "JAX_PROCESS_ID": str(r),
+                                 "JAX_NUM_PROCESSES": "2"})
+             for r in range(2)]
+    try:
+        held = fleet[0].wait_line("horovod_tpu_torch.faults: holding rank 0",
+                                  60)
+        assert held is not None, "\n".join(fleet[0].lines)
+        joiner_env = {k: v for k, v in env.items()
+                      if not k.startswith("HVD_TPU_FAULT_")}
+        fleet.append(soak.Replica(argv + ["--seed", "1"], {
+            **joiner_env, "JAX_PROCESS_ID": "2", "JAX_NUM_PROCESSES": "3",
+            "HVD_TPU_ELASTIC_JOIN": "1"}))
+        reps = []
+        for r in fleet:
+            line = r.wait_line("SERVE_REPORT ", 90)
+            assert line is not None, "\n".join(r.lines)
+            reps.append(json.loads(line.split(" ", 1)[1]))
+            assert r.proc.wait(timeout=30) == 0
+    finally:
+        for r in fleet:
+            if r.proc.poll() is None:
+                r.proc.kill()
+    for rep in reps:
+        assert rep["completed"] == rep["offered"] and not rep["timed_out"]
+    assert [r["rank"] for r in reps] == [0, 1, 2]
+    shipped = [r["shipped"] for r in reps if "shipped" in r]
+    assert len(shipped) == 1 and shipped[0]["transport"] == "direct"
+    assert reps[-1]["pulled"]["disk_reads"] == 0
+    assert reps[-1]["offered"] > 0
+    assert len({tuple(r["probe"]) for r in reps}) == 1
+
+
 def test_soak_two_replicas_join_loses_nothing():
     r = soak.run_fleet(n=2, join=True, kill=False, timeout_s=60)
     assert r["lost"] == 0 and r["completed"] == r["accepted"] > 0, r

@@ -452,3 +452,49 @@ def test_eager_modules_alone_import_no_jax_and_the_binding_names_torch():
     assert not [m for m in json.loads(out.strip().splitlines()[-1])
                 if _forbidden(m)]
 
+
+
+# -- fault-tolerant training ----------------------------------------------------
+
+FT_MODULES = (
+    "horovod_tpu_torch.run", "horovod_tpu_torch.utils.manifest",
+    "horovod_tpu_torch.checkpoint", "horovod_tpu_torch.data",
+    "horovod_tpu_torch.faults", "horovod_tpu_torch.training",
+    "horovod_tpu_torch.callbacks")
+
+
+@pytest.mark.parametrize("mod", FT_MODULES)
+def test_fault_tolerance_module_is_checked(mod):
+    # Walked by the two import checks above, which it passes.
+    assert mod in _modules()
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    test_no_import_statement_names_jax(path)
+
+
+def test_fault_tolerance_modules_alone_import_no_jax_and_nothing_of_horovod_tpu():
+    code = ("import json, sys\n"
+            f"for m in {FT_MODULES!r}: __import__(m)\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert not [m for m in json.loads(out.strip().splitlines()[-1])
+                if _forbidden(m)]
+
+
+def test_launcher_imports_no_torch_and_pins_no_platform():
+    # The supervising parent stays a standard-library process, and the
+    # children pick their own device.
+    code = ("import json, sys\n"
+            "import horovod_tpu_torch.run as r\n"
+            "env = r._child_env(0, 1, 1, 2, 0, None)\n"
+            "print(json.dumps([sorted(sys.modules), env.get('JAX_PLATFORMS'),"
+            " env.get('XLA_FLAGS')]))")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    mods, platforms, flags = json.loads(out.strip().splitlines()[-1])
+    assert "torch" not in mods and not [m for m in mods if _forbidden(m)]
+    assert platforms is None and flags is None
