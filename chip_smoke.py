@@ -11,6 +11,9 @@ line each:
                  line of its own), torch and CUDA versions;
 2. build       — every kernel compiled, one ``nvcc`` per source in
                  parallel;
+   tiles       — the flash tiles and shared memory that the context plan
+                 reports (``kernel_tiles``, no card needed) equal to what
+                 the built launchers say they launch, at every route;
 3. flash       — the flash-attention forward kernel against its plain
                  PyTorch version at ``[1, S, 6, 128]`` and the training
                  shape ``[8, 1024, 6, 128]``, bf16, with times of the
@@ -28,6 +31,15 @@ line each:
                  yardstick is the backward of the library call), each
                  with its own bound (dq: three products, one output;
                  dk/dv: four products, two outputs);
+   flash_offsets — the three flash kernels against their plain versions
+                 at ``[1, S, 16, 128]`` bf16, S = 2048 and 4096, with the
+                 offsets ring and zigzag attention launch them at,
+                 ``(q_offset, k_offset)`` in (2048, 0), (4096, 2048) and
+                 (0, 2048) (wholly masked at S = 2048: out 0, lse NEG_INF
+                 and zero gradients, bit for bit), with times of each
+                 kernel, its plain version and
+                 ``F.scaled_dot_product_attention`` with the same boolean
+                 mask (forward, or its backward), and each bound;
 5. rmsnorm     — the RMSNorm forward kernel against its plain version at
                  ``[N, 768]`` bf16 for every N a main path gives it (the
                  run records each shape it launches at from ``serve`` to
@@ -176,6 +188,26 @@ line each:
                  3-rank run; their launches.  Prints the recovery ms (the
                  victim's last save to the survivors' first step after the
                  shrink), the replica bytes shipped and the restore ms;
+   longctx     — ``python -m horovod_tpu_torch.train_longseq`` at full
+                 width and depth (8 x 2048, 16 heads of 128, GLU 8192,
+                 vocab 32000, bf16 over f32 parameters, the RMSNorm
+                 kernels), one process (width 1, the plain layout), S =
+                 8192 and 32768: one step through the kernels against the
+                 same step through the plain versions (the train bounds),
+                 then 3 warm-up and 5 timed steps: exact launches (8 of
+                 each flash kernel and 17 of each RMSNorm kernel a step, the
+                 forward ones doubled under remat), a falling finite loss,
+                 tokens/s, MFU, peak memory, one traced step and the plan;
+   longctx_2proc — two processes on the card under ``python -m
+                 horovod_tpu_torch.run -np 2`` (``--longctx-worker``),
+                 gloo, width 2, S = 8192, the planned zigzag layout: one
+                 step's mean loss and averaged gradients against the
+                 width-1 run on the same weights and tokens (the train
+                 bounds), the plain layout pinned (``layout="plain"``) with
+                 ``steps_run == rank + 1`` and Ulysses, both against one
+                 flash call on the whole sequence, 3 steps with 4n = 8 of
+                 each flash kernel a layer, the exchange's bytes and host
+                 ms;
 9. resnet      — the ResNet-50 step of ``python -m
                  horovod_tpu_torch.train_resnet`` at full size (128 images
                  of 224×224×3 on the card, bf16 over f32 parameters,
@@ -191,8 +223,9 @@ line each:
                  the CUDA cores) and a line on its design; ``launches`` is
                  the sum over the serve, serve_paged (a-d), router,
                  serve_fleet (summed over its replicas' reports), train,
-                 train_eager and train_resume (summed over its processes)
-                 runs, each counted from 0 around its own run
+                 train_eager, train_resume (summed over its processes),
+                 longctx and longctx_2proc (summed over its ranks) runs,
+                 each counted from 0 around its own run
                  (``launches_by_run``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -242,6 +275,24 @@ ROUTER_REQUESTS, ROUTER_NEW, ROUTER_SLO_MS = 8, 16, 1000.0
 # report within 120 s.
 FLEET_FOUNDERS, FLEET_QPS, FLEET_DURATION_S = 2, 4.0, 6.0
 FLEET_JOIN_AFTER_S, FLEET_PROBE_TOKENS, FLEET_TIMEOUT_S = 2.0, 16, 120.0
+# flash_offsets: the three flash kernels at [1, S, 16, 128] bf16 (the
+# long-context model's heads), (S, q_offset, k_offset): with both offsets
+# set, as ring and zigzag attention launch them (queries past their keys,
+# both past the diagonal, and keys after every query: at S = 2048 wholly
+# masked, out 0, lse NEG_INF, zero gradients; S = 2048 is a zigzag
+# half-pair at S = 8192 over two ranks), and the width-1 calls at S =
+# 8192 and 32768.
+FLASH_OFFSET_ROWS = tuple((s, q, k) for s in (2048, 4096)
+                          for q, k in ((2048, 0), (4096, 2048), (0, 2048))
+                          ) + ((8192, 0, 0), (32768, 0, 0))
+# longctx: train_longseq at full width and depth (8 x 2048, 16 heads of
+# 128, GLU 8192, vocab 32000), width 1, 3 warm-up and 5 timed steps at
+# each length; longctx_2proc: two processes on the card under the
+# launcher, gloo exchange, width 2 at S = 8192.
+LONGCTX_SEQS = (8192, 32768)
+LONGCTX_2PROC_SEQ = 8192
+LONGCTX_2PROC_STEPS = 3
+LONGCTX_TIMEOUT_S = 400.0
 # (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
 # prefill buckets, S=1000 (masked edge tiles), a longer and a non-causal
 # row, a query block past its keys, the training step's shape, and one
@@ -277,14 +328,23 @@ FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False, 6, torch.bfloat16),
 # and 1 and 1000.  ``main`` fails when a main path gives it another
 # (``record_norm_rows``).
 RMS_ROWS = (1, 8, 40, 128, 256, 512, 1000, 1024, 2048, 8192)
-# (dtype, N) of the RMSNorm forward's checks: the bf16 rows of every path
-# (register form) and the f32 training step's rows (3 KB: the loop form).
-RMS_CASES = tuple((torch.bfloat16, n) for n in RMS_ROWS) + (
-    (torch.float32, 8192),)
-# (N, E) of the RMSNorm backward's checks: the 162M step's width, and
-# widths past 7168 (the wide form, a block a row).
+# [N, 2048] bf16: the long-context step's rows, a rank's shard of S =
+# 8192 at width 2, and S = 8192 and 32768 at width 1 (rows of 4 KB: the
+# loop form).
+LONGCTX_RMS_ROWS = (4096, 8192, 32768)
+# (dtype, N, E) of the RMSNorm forward's checks: the bf16 rows of every
+# path (the register form at 768, the loop form at 2048) and the f32
+# training step's rows (3 KB: the loop form).
+RMS_CASES = tuple((torch.bfloat16, n, 768) for n in RMS_ROWS) + (
+    (torch.float32, 8192, 768),) + tuple(
+    (torch.bfloat16, n, 2048) for n in LONGCTX_RMS_ROWS)
+# (N, E) of the RMSNorm backward's checks: the 162M step's width, the
+# long-context step's, and widths past 7168 (the wide form, a block a
+# row).
 RMS_BWD_CASES = ((1000, 768), (2048, 768), (8192, 768), (1024, 8192),
-                 (1024, 12288))
+                 (1024, 12288)) + tuple((n, 2048) for n in LONGCTX_RMS_ROWS)
+# The register form's longest row (csrc/rmsnorm_fwd.cu kRegRowBytes).
+RMS_REG_ROW_BYTES = 2048
 RMS_MAIN = 8192                         # one training step's tokens
 RESNET_WARMUP, RESNET_STEPS = 3, 8
 # bf16 outputs: |kernel - plain| <= ATOL + RTOL * |plain|.  Both compute in
@@ -445,9 +505,34 @@ def phase_build():
          ptxas=ptxas)
 
 
-def _visible(s_q, s_k, causal, q_off):
+def phase_tiles() -> None:
+    """``ops.flash_attention.kernel_tiles``, which the context plan reports
+    and which needs no card, against what the built launchers say they
+    launch (``launcher_tiles``) at every route: both dtypes, head dims 64
+    to 320, few and many q rows, and batch·heads on both sides of the
+    card's SM count."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    checked = 0
+    for dtype_bytes in (2, 4):
+        for d in (64, 96, 128, 256, 320):
+            for s_q, bh in ((64, 1), (2048, 16), (4096, 16), (32768, 16),
+                            (1024, 48), (1024, 8)):
+                want = fa.launcher_tiles(d, dtype_bytes, s_q, bh)
+                got = fa.kernel_tiles(d, dtype_bytes, s_q, bh)
+                if got != want:
+                    raise AssertionError(
+                        f"kernel_tiles({d}, {dtype_bytes}, {s_q}, {bh}) = "
+                        f"{got}, the launchers launch {want}")
+                checked += 1
+    emit("tiles", shapes_checked=checked,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count,
+         longctx=fa.launcher_tiles(128, 2, 8192, 16))
+
+
+def _visible(s_q, s_k, causal, q_off, k_off=0):
     qpos = q_off + torch.arange(s_q, device="cuda")
-    kpos = torch.arange(s_k, device="cuda")
+    kpos = k_off + torch.arange(s_k, device="cuda")
     return (qpos[:, None] >= kpos[None, :]) if causal else \
         torch.ones(s_q, s_k, dtype=torch.bool, device="cuda")
 
@@ -642,26 +727,29 @@ def phase_rmsnorm() -> dict:
     from horovod_tpu_torch.utils import trace
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    e = 768
-    scale = 1.0 + 0.1 * torch.randn(e, generator=gen, device="cuda")
+    scales = {e: 1.0 + 0.1 * torch.randn(e, generator=gen, device="cuda")
+              for e in sorted({e for _, _, e in RMS_CASES})}
     worst, main = 0.0, None
     lib_fn = getattr(F, "rms_norm", None)
     # The least a call can take: one empty launch, timed the same way.
     launch_floor_ms = time_ms(lambda: torch.cuda._sleep(0))
-    for dtype, n in RMS_CASES:
+    for dtype, n, e in RMS_CASES:
+        scale = scales[e]
         x = torch.randn(n, e, generator=gen, device="cuda", dtype=dtype)
         y = rn.rms_norm(x, scale)
         ref = rn.rms_norm_reference(x, scale)
         torch.cuda.synchronize()
         bf16 = dtype == torch.bfloat16
-        tag = f"rmsnorm {str(dtype)[6:]} N={n}"
+        tag = f"rmsnorm {str(dtype)[6:]} N={n} E={e}"
         err = check_close(tag, y, ref, RMS_ATOL,
                           BF16_RTOL if bf16 else RMS_F32_RTOL)
         if bf16:
             worst = max(worst, err)
-        # One call, one kernel, of the form the shape picks: bf16 rows of
-        # 768 in registers, f32 rows of 768 (3 KB) in the loop.
-        form = "rmsnorm_fwd_regs_kernel" if bf16 else "rmsnorm_fwd_kernel"
+        # One call, one kernel, of the form the shape picks: rows of at
+        # most 2 KB (bf16 at 768) in registers, longer ones (f32 at 768,
+        # bf16 at 2048) in the loop.
+        form = "rmsnorm_fwd_regs_kernel" if e * x.element_size() <= \
+            RMS_REG_ROW_BYTES else "rmsnorm_fwd_kernel"
         names = trace.kernels_in_one_call(lambda: rn.rms_norm(x, scale))
         if len(names) != 1 or form not in names[0]:
             raise AssertionError(f"{tag}: one call ran {names}")
@@ -698,7 +786,7 @@ def phase_rmsnorm() -> dict:
                        share_of_bound=bound_ms / hbm["kernel_ms"])
             del sets
         emit("rmsnorm", **row)
-        if bf16 and n == RMS_MAIN:
+        if bf16 and (n, e) == (RMS_MAIN, 768):
             # The kernels line takes the HBM times, the bound's terms.
             main = dict(row, **row["hbm"])
     main["max_abs_err"] = worst
@@ -1398,7 +1486,7 @@ def record_norm_rows(seen: set):
 def check_norm_rows(seen: set) -> None:
     """Every shape a main path gave the RMSNorm forward kernel is one
     that ``phase_rmsnorm`` held against the plain version."""
-    checked = {(dt, n, 768) for dt, n in RMS_CASES}
+    checked = set(RMS_CASES)
     unchecked = sorted((str(dt), n, e) for dt, n, e in seen - checked)
     emit("rmsnorm_rows", main_paths=sorted((str(dt), n, e)
                                            for dt, n, e in seen),
@@ -1541,14 +1629,18 @@ def _timed_steps(model, opt, tokens, accumulate: int = 1):
             torch.cuda.max_memory_allocated())
 
 
-def _per_step(cfg, accumulate: int = 1) -> dict:
-    """Each kernel's launches in one 162M step: a flash forward, dq and
-    dk/dv per layer and 2L + 1 norms, forward and backward; under remat
-    every block's forward (its flash forward and two norms) runs twice."""
+def _per_step(cfg, accumulate: int = 1, width: int = 1) -> dict:
+    """Each kernel's launches in one step on one rank: a flash forward, dq
+    and dk/dv per layer (under zigzag at width n > 1, 4n: four half-pairs
+    at each of n ring steps) and 2L + 1 norms, forward and backward; under
+    remat (the context plan's, when the model has one) every block's
+    forward (its flash forwards and two norms) runs twice."""
     layers, norms = cfg.num_layers, 2 * cfg.num_layers + 1
-    fwd, norm_fwd = (2 * layers, norms + 2 * layers) if cfg.remat else \
-        (layers, norms)
-    per = {"flash_fwd": fwd, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+    flash = layers * (4 * width if width > 1 else 1)
+    remat = cfg.remat if cfg.context_plan is None else cfg.context_plan.remat
+    fwd, norm_fwd = (2 * flash, norms + 2 * layers) if remat else \
+        (flash, norms)
+    per = {"flash_fwd": fwd, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
            "rmsnorm_fwd": norm_fwd, "rmsnorm_bwd": norms}
     return {n: c * accumulate for n, c in per.items()}
 
@@ -2735,6 +2827,398 @@ def phase_train_elastic_3proc(deterministic: bool) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_flash_offsets() -> list:
+    """The three flash kernels against their plain versions at the
+    long-context path's shapes and offsets (:data:`FLASH_OFFSET_ROWS`),
+    with times of the
+    kernel, the plain version and ``F.scaled_dot_product_attention`` with
+    the same boolean mask (its backward for dq and dk/dv), and each
+    kernel's bound.  A wholly masked call must give out 0, lse NEG_INF and
+    zero gradients, bit for bit, and nothing non-finite."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    h, d = 16, 128
+    rows = []
+    for s in sorted({s for s, _, _ in FLASH_OFFSET_ROWS}):
+        q, k, v, dout = (_bshd(gen, 1, s, h, d, False) for _ in range(4))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dout_t = dout.transpose(1, 2).contiguous()
+        for q_off, k_off in ((q, k) for r, q, k in FLASH_OFFSET_ROWS
+                             if r == s):
+            visible = _visible(s, s, True, q_off, k_off)
+            pairs = int(visible.sum())
+            tag = f"flash_offsets S={s} q_offset={q_off} k_offset={k_off}"
+            out, lse = fa.flash_attention_with_lse(q, k, v, True, q_off,
+                                                   k_off)
+            delta = (dout.float() * out.float()).sum(dim=-1)
+            args = (q, k, v, dout, lse, delta, True, q_off, k_off)
+            got = {"out": out, "lse": lse, "dq": fa.flash_bwd_dq(*args)}
+            got["dk"], got["dv"] = fa.flash_bwd_dkv(*args)
+            ref_out, ref_lse = fa.flash_attention_reference(
+                q, k, v, True, q_off, k_off)
+            want = {"out": ref_out, "lse": ref_lse,
+                    "dq": fa.flash_bwd_dq_reference(*args)}
+            want["dk"], want["dv"] = fa.flash_bwd_dkv_reference(*args)
+            torch.cuda.synchronize()
+            (atol, rtol), (g_atol, g_rtol) = _flash_tolerances(q.dtype)
+            err = {"out": check_close(f"{tag} out", out, ref_out, atol,
+                                      rtol),
+                   "lse": check_close(f"{tag} lse", lse, ref_lse, LSE_ATOL,
+                                      0.0)}
+            for name in ("dq", "dk", "dv"):
+                err[name] = check_close(f"{tag} {name}", got[name],
+                                        want[name], g_atol(want[name]),
+                                        g_rtol)
+            if not pairs:
+                exact = (not bool(got["out"].any())
+                         and bool((got["lse"] == fa.NEG_INF).all())
+                         and not any(bool(got[n].any())
+                                     for n in ("dq", "dk", "dv")))
+                if not exact:
+                    raise AssertionError(f"{tag}: a wholly masked call "
+                                         f"must give out 0, lse NEG_INF "
+                                         f"and zero gradients")
+            # Bytes: the q rows (with dO, lse and Δ) that see a key and
+            # the keys some query sees, read once; every output written
+            # once.  A wholly masked call only writes its outputs.
+            size = q.element_size()
+            rows_q = float(visible.any(dim=1).sum())
+            rows_k = float(visible.any(dim=0).sum())
+            per_row = size * h * d
+            work = {"flash_fwd": (4.0 * h * d * pairs,
+                                  per_row * (rows_q + 2 * rows_k)
+                                  + per_row * s + 4.0 * s * h),
+                    "flash_bwd_dq": (3 * 2.0 * d * h * pairs,
+                                     per_row * (2 * rows_q + 2 * rows_k)
+                                     + 8.0 * rows_q * h + per_row * s),
+                    "flash_bwd_dkv": (4 * 2.0 * d * h * pairs,
+                                      per_row * (2 * rows_q + 2 * rows_k)
+                                      + 8.0 * rows_q * h + 2 * per_row * s)}
+            kernel = {"flash_fwd": lambda: fa.flash_attention_with_lse(
+                          q, k, v, True, q_off, k_off),
+                      "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args),
+                      "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*args)}
+            plain = {"flash_fwd": lambda: fa.flash_attention_reference(
+                         q, k, v, True, q_off, k_off),
+                     "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(
+                         *args),
+                     "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(
+                         *args)}
+            # Offsets set: the boolean mask; none: the library's causal
+            # kernel (a mask at S = 32768 would take 1 GB).
+            sdpa = _sdpa(True, q_off or k_off, visible)
+            with torch.no_grad():
+                lib_fwd = time_ms(lambda: sdpa(qt, kt, vt))
+            lib_out = sdpa(qt, kt, vt)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dout_t, retain_graph=True))
+            del lib_out
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                flops, nbytes = work[name]
+                bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+                row = dict(
+                    kernel=name, shape=[1, s, h, d], q_offset=q_off,
+                    k_offset=k_off, pairs=pairs, wholly_masked=not pairs,
+                    max_abs_err=(max(err["out"], err["lse"])
+                                 if name == "flash_fwd" else err["dq"]
+                                 if name == "flash_bwd_dq"
+                                 else max(err["dk"], err["dv"])),
+                    kernel_ms=time_ms(kernel[name]),
+                    plain_ms=time_ms(plain[name], iters=3, warmup=1),
+                    library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+                    library_computes=("the forward" if name == "flash_fwd"
+                                      else "dq, dk and dv"),
+                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                    bytes=nbytes)
+                row["share_of_bound"] = bound_ms / row["kernel_ms"]
+                emit("flash_offsets", **row)
+                rows.append(row)
+            del got, want, ref_out, ref_lse, out, lse, delta
+        del q, k, v, dout, qt, kt, vt, dout_t
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _chunked_loss(logits, tokens, chunks: int):
+    """Mean over ``chunks`` equal contiguous chunks of each chunk's
+    next-token cross entropy: the zigzag layout's loss over ``chunks / 2``
+    ranks, in natural order."""
+    from horovod_tpu_torch.ops.losses import softmax_cross_entropy
+
+    c = tokens.shape[1] // chunks
+    return sum(softmax_cross_entropy(logits[:, i * c:(i + 1) * c - 1],
+                                     tokens[:, i * c + 1:(i + 1) * c]).mean()
+               for i in range(chunks)) / chunks
+
+
+def _grad_digest(model) -> dict:
+    return {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+
+def phase_longctx() -> dict:
+    """``train_longseq`` at full width and depth on one process (width 1,
+    the plain layout) for each of :data:`LONGCTX_SEQS`: one step through
+    the kernels against the same step through the plain versions, then 3
+    warm-up and 5 timed steps with exact launches, a falling finite loss,
+    tokens/s, MFU, peak memory and one traced step's idle share."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_longseq as tl
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()   # NCCL, world 1: the ring is one flash call a layer
+    runs = []
+    try:
+        dev = basics.device()
+        for seq in LONGCTX_SEQS:
+            plan = tl.plan_for(seq)
+            cfg = tl.longseq_config(plan, seq)
+            t0 = time.monotonic()
+            model, opt = tl.make_trainer(cfg, dev, SEED)
+            build_s = time.monotonic() - t0
+            tokens = tl.token_shard(plan, cfg.vocab_size, dev, SEED)
+            # One step's loss and gradients through the kernels against
+            # the same step through the plain versions, at the seeded
+            # weights.
+            with plain_versions():
+                loss = tl.loss_fn(model, tokens, plan)
+                loss.backward()
+            plain_loss, plain_grads = float(loss.detach()), \
+                _grad_digest(model)
+            model.zero_grad(set_to_none=True)
+            loss = tl.loss_fn(model, tokens, plan)
+            loss.backward()
+            check = _grads_vs(model, plain_loss, plain_grads,
+                              float(loss.detach()))
+            _within_train_bounds(f"longctx S={seq} kernels vs plain", check)
+            model.zero_grad(set_to_none=True)
+            del plain_grads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            losses = [tl.train_step(model, opt, tokens, plan)
+                      for _ in range(tl.WARMUP_STEPS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [tl.train_step(model, opt, tokens, plan)
+                       for _ in range(tl.TIMED_STEPS)]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / tl.TIMED_STEPS
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            losses = [float(x) for x in losses]
+            per_step = _per_step(cfg)
+            steps = tl.WARMUP_STEPS + tl.TIMED_STEPS
+            if launches != {n: steps * c for n, c in per_step.items()}:
+                raise AssertionError(f"longctx S={seq} launches {launches} "
+                                     f"over {steps} steps, want {per_step} "
+                                     f"a step")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"longctx S={seq} losses not finite "
+                                     f"and falling: {losses}")
+            with tempfile.TemporaryDirectory() as tmp:
+                breakdown = trace.measure(
+                    f"longctx_{seq}",
+                    lambda: tl.train_step(model, opt, tokens, plan), 1, tmp)
+            tok_s = seq / step_s
+            emit("longctx", model="long-context decoder (8 x 2048, 16 heads "
+                 "of 128, GLU 8192, vocab 32000, bf16 compute / f32 params, "
+                 "f32 logits, RMSNorm kernels)", seq_len=seq,
+                 params=sum(p.numel() for p in model.parameters()),
+                 processes=basics.size(), build_s=build_s, losses=losses,
+                 step_ms=step_s * 1e3, tok_per_s=tok_s,
+                 mfu=tok_s * tl.flops_per_token(cfg, seq) / PEAK_BF16_FLOPS,
+                 launches=launches, launches_per_step=per_step,
+                 max_memory_allocated=peak, step_vs_plain=check,
+                 breakdown=breakdown, plan=plan.as_dict())
+            runs.append(launches)
+            del model, opt, tokens
+            torch.cuda.empty_cache()
+    finally:
+        basics.shutdown()
+    return {"launches": {n: sum(r[n] for r in runs) for n in runs[0]}}
+
+
+def longctx_worker() -> None:
+    """One rank of ``longctx_2proc`` (``python -m horovod_tpu_torch.run -np
+    2 -- python chip_smoke.py --longctx-worker``): prints one
+    ``LONGCTX_REPORT`` JSON line."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_longseq as tl
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import (context_attention_fn,
+                                            exchange_stats,
+                                            make_ulysses_flash_attention,
+                                            plan_long_context,
+                                            reset_exchange_stats,
+                                            ring_flash_attention_stats)
+
+    # Two ranks on one card: gloo (NCCL refuses two ranks on one device),
+    # and the ring's exchange staged through host memory.
+    basics.init(device="cuda:0", backend="gloo")
+    try:
+        dev, rank, n = basics.device(), basics.rank(), basics.size()
+        group = tl.context_group()
+        solo = [dist.new_group([r]) for r in range(n)][rank]
+        seq = LONGCTX_2PROC_SEQ
+        plan = tl.plan_for(seq)
+        cfg = tl.longseq_config(plan, seq)
+        t0 = time.monotonic()
+        model, opt = tl.make_trainer(cfg, dev, SEED)
+        build_s = time.monotonic() - t0
+        tokens = tl.token_shard(plan, cfg.vocab_size, dev, SEED)
+        report = {"rank": rank, "backend": dist.get_backend(group),
+                  "build_s": build_s, "plan": plan.as_dict()}
+
+        # The width-1 run on the same weights and tokens (natural order,
+        # a group of this rank alone, the plain layout), with the zigzag
+        # layout's loss over n ranks: the mean of 2n chunks' losses.
+        plan1 = plan_long_context(
+            seq_len=seq, num_heads=cfg.num_heads, head_dim=cfg.head_dim,
+            width=1, embed_dim=cfg.embed_dim, mlp_dim=cfg.mlp_dim,
+            num_layers=cfg.num_layers)
+        ref = Transformer(tl.longseq_config(plan1, seq, context_axis=solo),
+                          device=dev)
+        ref.load_state_dict(model.state_dict())
+        natural = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, cfg.vocab_size, (1, seq))).to(dev)
+        ref_loss = _chunked_loss(ref(natural), natural, 2 * n)
+        ref_loss.backward()
+        ref_loss, ref_grads = float(ref_loss.detach()), _grad_digest(ref)
+        del ref
+        torch.cuda.empty_cache()
+
+        # Attention alone at the model's widths: the plain layout (pinned)
+        # and Ulysses over the group against one flash call on the whole
+        # sequence, forward and backward.
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        q, k, v, dout = (_bshd(gen, 1, seq, cfg.num_heads, cfg.head_dim,
+                               False) for _ in range(4))
+        qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+        fa.flash_attention(qf, kf, vf).backward(dout)
+        full = {"out": fa.flash_attention(q, k, v).detach(),
+                "dq": qf.grad, "dk": kf.grad, "dv": vf.grad}
+        sl = seq // n
+        mine = lambda t: t[:, rank * sl:(rank + 1) * sl]  # noqa: E731
+        (atol, rtol), (g_atol, g_rtol) = _flash_tolerances(q.dtype)
+        plain = plan_long_context(
+            seq_len=seq, num_heads=cfg.num_heads, head_dim=cfg.head_dim,
+            width=n, layout="plain")
+        attn = {"plain": context_attention_fn(group, plain),
+                "ulysses": make_ulysses_flash_attention(group)}
+        report["attention"] = {}
+        for name, fn in attn.items():
+            ql, kl, vl = (mine(t).clone().requires_grad_()
+                          for t in (q, k, v))
+            o = fn(ql, kl, vl)
+            o.backward(mine(dout))
+            tag = f"longctx_2proc rank {rank} {name}"
+            errs = {"out": check_close(f"{tag} out", o, mine(full["out"]),
+                                       atol, rtol)}
+            for g, t in (("dq", ql), ("dk", kl), ("dv", vl)):
+                want = mine(full[g])
+                errs[g] = check_close(f"{tag} {g}", t.grad, want,
+                                      g_atol(want), g_rtol)
+            report["attention"][name] = errs
+        _, steps_run = ring_flash_attention_stats(mine(q), mine(k), mine(v),
+                                                  group, True)
+        report["attention"]["plain"]["steps_run"] = steps_run
+        del q, k, v, dout, qf, kf, vf, full
+
+        # One step's loss (averaged over the ranks) and averaged gradients
+        # against the width-1 run's.
+        model.zero_grad(set_to_none=True)
+        loss = tl.loss_fn(model, tokens, plan)
+        loss.backward()
+        opt.synchronize()
+        report["step"] = _grads_vs(model, ref_loss, ref_grads,
+                                   float(tl.allreduce(loss.detach())))
+        model.zero_grad(set_to_none=True)
+        del ref_grads
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        reset_exchange_stats()
+        losses, step_ms = [], []
+        for _ in range(LONGCTX_2PROC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(tl.train_step(model, opt, tokens, plan)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        report.update(losses=losses, step_ms=step_ms,
+                      launches=_launches(),
+                      launches_per_step=_per_step(cfg, width=n),
+                      exchange=exchange_stats(),
+                      max_memory_allocated=torch.cuda.max_memory_allocated())
+        print("LONGCTX_REPORT " + json.dumps(report), flush=True)
+    finally:
+        basics.shutdown()
+
+
+def phase_longctx_2proc() -> dict:
+    """Two processes on the card under ``python -m horovod_tpu_torch.run
+    -np 2`` (``--longctx-worker``), width 2, the planned zigzag layout,
+    full width and depth at S = 8192.  Checks: the planned layout; on each
+    rank, the mean loss and the averaged gradients of one step against the
+    width-1 run on the same weights and tokens (the train bounds:
+    |Δloss| <= 0.02, each gradient's rel. L2 <= 0.05); the plain layout's
+    steps_run == rank + 1; plain and Ulysses attention against one flash
+    call on the whole sequence; each rank's launches, 4n of each flash
+    kernel a layer a step."""
+    from horovod_tpu_torch import train_longseq as tl
+
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
+           sys.executable, os.path.abspath(__file__), "--longctx-worker"]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=LONGCTX_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.monotonic() - t0
+    reports = [json.loads(line.split("LONGCTX_REPORT ", 1)[1])
+               for line in proc.stdout.splitlines()
+               if "LONGCTX_REPORT " in line]
+    if proc.returncode != 0 or len(reports) != 2:
+        raise AssertionError(f"longctx_2proc exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    reports.sort(key=lambda r: r["rank"])
+    per = reports[0]["launches_per_step"]
+    if per["flash_bwd_dq"] != 4 * 2 * tl.LAYERS:
+        raise AssertionError(f"longctx_2proc: {per} a step, want 4n = 8 "
+                             f"flash launches a layer")
+    for rep in reports:
+        r = rep["rank"]
+        if rep["plan"]["layout"] != "zigzag" or rep["backend"] != "gloo":
+            raise AssertionError(f"longctx_2proc rank {r}: {rep['plan']}, "
+                                 f"{rep['backend']}")
+        if rep["attention"]["plain"]["steps_run"] != r + 1:
+            raise AssertionError(f"longctx_2proc rank {r}: steps_run "
+                                 f"{rep['attention']['plain']}")
+        want = {k: c * LONGCTX_2PROC_STEPS for k, c in per.items()}
+        if rep["launches"] != want:
+            raise AssertionError(f"longctx_2proc rank {r}: launches "
+                                 f"{rep['launches']}, want {want}")
+        _within_train_bounds(f"longctx_2proc rank {r} against width 1",
+                             rep["step"])
+        if not all(np.isfinite(rep["losses"])):
+            raise AssertionError(f"longctx_2proc rank {r}: {rep['losses']}")
+        ex = rep["exchange"]
+        ex["bytes_per_exchange"] = ex["bytes"] / max(ex["exchanges"], 1)
+        ex["host_ms_per_exchange"] = ex["host_ms"] / max(ex["exchanges"], 1)
+    emit("longctx_2proc", processes=2, seq_len=LONGCTX_2PROC_SEQ,
+         layers=tl.LAYERS, wall_s=wall_s, launches_per_step=per,
+         reports=reports)
+    return {"launches": {k: sum(rep["launches"][k] for rep in reports)
+                         for k in per}}
+
+
 def _is_bypass(plan) -> bool:
     """The adaptive planner's width-1 bypass: no hook, no collective."""
     return (plan is not None and plan["planner"] == "adaptive"
@@ -2812,8 +3296,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = phase_device()
     phase_build()
+    phase_tiles()
     flash = phase_flash()
     dq, dkv = phase_flash_bwd()
+    phase_flash_offsets()
     rms = phase_rmsnorm()
     rms_bwd = phase_rmsnorm_bwd()
     norm_rows = set()
@@ -2831,7 +3317,9 @@ def main() -> int:
         phase_train_remat(train)
         phase_train_accumulate()
         eager = phase_train_eager(train)
+        longctx = phase_longctx()
     check_norm_rows(norm_rows)
+    longctx_2proc = phase_longctx_2proc()
     phase_train_eager_2proc()
     resume = phase_train_resume()
     phase_train_elastic_3proc(resume["deterministic"])
@@ -2841,7 +3329,9 @@ def main() -> int:
     runs = {"serve": serve_launches, "serve_paged": paged_launches,
             "router": router_launches, "serve_fleet": fleet_launches,
             "train": train["launches"], "train_eager": eager["launches"],
-            "train_resume": resume["launches"]}
+            "train_resume": resume["launches"],
+            "longctx": longctx["launches"],
+            "longctx_2proc": longctx_2proc["launches"]}
     launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
     entries = []
@@ -2898,6 +3388,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-worker"]:
         resume_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4] == "1",
                       sys.argv[5] == "1")
+        sys.exit(0)
+    if sys.argv[1:2] == ["--longctx-worker"]:
+        longctx_worker()
         sys.exit(0)
     if sys.argv[1:2] == ["--elastic-worker"]:
         elastic_worker(int(sys.argv[2]), int(sys.argv[3]),

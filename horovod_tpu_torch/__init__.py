@@ -33,7 +33,11 @@ the engine's reports, and the ``horovod_tpu_torch.torch`` binding; fault
 tolerance (slice 11): the launcher ``python -m horovod_tpu_torch.run``,
 ``checkpoint`` (manifest-committed, async persist, peer-replicated
 restore), ``data`` (sharding, background loading, prefetch to the card),
-the fault injectors and :func:`elastic_loop`.  The
+the fault injectors and :func:`elastic_loop`; and long-context training:
+the context plan (:func:`plan_context`, :func:`context_plan`),
+ring, zigzag and Ulysses attention over a process group
+(``horovod_tpu_torch.parallel``), and ``python -m
+horovod_tpu_torch.train_longseq``.  The
 top-level :func:`synchronize` takes an engine handle (an ``int``);
 ``ops.collective_ops.synchronize`` takes the ``AllreduceHandle`` of
 :func:`grouped_allreduce_async`.  Importing the package creates no process
@@ -69,7 +73,8 @@ _ATTR_HOME = {
         "horovod_tpu_torch.ops.async_ops"),
     "Compression": "horovod_tpu_torch.ops.compression",
     "softmax_cross_entropy": "horovod_tpu_torch.ops.losses",
-    "overlap_plan": "horovod_tpu_torch.ops.schedule_plan",
+    **dict.fromkeys(("context_plan", "overlap_plan", "plan_context"),
+                    "horovod_tpu_torch.ops.schedule_plan"),
     **dict.fromkeys((
         "DistributedOptimizer", "accumulate_gradients", "broadcast_object",
         "broadcast_optimizer_state", "broadcast_parameters", "elastic_loop",
@@ -77,7 +82,7 @@ _ATTR_HOME = {
         "horovod_tpu_torch.training"),
     "resolve_device": "horovod_tpu_torch.utils.device",
 }
-_SUBMODULES = {"callbacks", "checkpoint", "data"}
+_SUBMODULES = {"callbacks", "checkpoint", "data", "parallel"}
 
 __all__ = sorted(set(_ATTR_HOME) | _SUBMODULES)
 

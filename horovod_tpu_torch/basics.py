@@ -113,15 +113,19 @@ def _rendezvous(size: int) -> str:
 
 def init(*, device=None, init_method: str | None = None,
          rank: int | None = None, size: int | None = None,
-         ranks=None) -> None:
+         ranks=None, backend: str | None = None) -> None:
     """Join the job: the analog of ``hvd.init()``.
 
     ``device`` is ``cuda`` unless given (NCCL; raises without a card) or
     ``"cpu"`` (gloo).  ``rank``/``size``/``init_method`` override the
     environment.  ``ranks`` restricts the job to those launch ranks (every
     process of the launch calls ``init`` with the same list; a non-member
-    raises ``ValueError`` after the group is formed).  Safe to call more
-    than once: later calls are no-ops.
+    raises ``ValueError`` after the group is formed).  ``backend``
+    overrides the group's backend: ``"gloo"`` on ``cuda`` lets several
+    processes share one card, which NCCL refuses (gloo reduces and
+    broadcasts CUDA tensors; the port's point-to-point exchanges stage them
+    through host memory).  Safe to call more than once: later calls are
+    no-ops.
     """
     global _topology
     with _lock:
@@ -146,9 +150,7 @@ def init(*, device=None, init_method: str | None = None,
             if dev.index is None:
                 dev = torch.device("cuda", local_rank)
             torch.cuda.set_device(dev)
-            backend = "nccl"
-        else:
-            backend = "gloo"
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
         members = tuple(range(size)) if ranks is None else \
             tuple(int(r) for r in ranks)
         if len(set(members)) != len(members) or not members or any(

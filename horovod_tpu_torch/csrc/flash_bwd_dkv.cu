@@ -809,3 +809,25 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
         : wide::launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s);
   return -1;
 }
+
+// The tiles a call of hvd_flash_bwd_dkv at this shape launches, as the
+// launchers above choose them: tiles[0] q rows and tiles[1] keys of a
+// block's tile, tiles[2] its dynamic shared memory in bytes.  Launches
+// nothing; returns -1 where hvd_flash_bwd_dkv would.
+extern "C" int hvd_flash_bwd_dkv_tiles(int dtype, int B, int H, int Sq, int D,
+                                       int* tiles) {
+  auto put = [tiles](int bq, int bk, size_t smem) {
+    tiles[0] = bq, tiles[1] = bk, tiles[2] = (int)smem;
+    return 0;
+  };
+  if (dtype == 1 && D == 64) return put(64, 64, tc::Smem<64>::kBytes);
+  if (dtype == 1 && D == 128) return put(64, 64, tc::Smem<128>::kBytes);
+  if (dtype == 0 && D == 64) return put(kBQ, Keys<64>::kBK, smem_bytes<64>());
+  if (dtype == 0 && D == 128)
+    return put(kBQ, Keys<128>::kBK, smem_bytes<128>());
+  if ((dtype == 0 || dtype == 1) && D == 256)
+    return put(kBQ, Keys<256>::kBK, smem_bytes<256>());
+  if ((dtype == 0 || dtype == 1) && D > 256 && D % 64 == 0)
+    return put(kBQ, wide::kBK, wide::smem_bytes());
+  return -1;
+}

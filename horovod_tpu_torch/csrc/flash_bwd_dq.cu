@@ -735,12 +735,16 @@ int launch_rows(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // 128-row q tiles when they give every SM a block, else 64-row ones.
+inline bool two_row_tiles(int B, int H, int Sq) {
+  return (long)((Sq + 127) / 128) * B * H >= num_sms();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int H, int Sq,
            int Sk, int causal, int q_offset, int k_offset, float qscale,
            float scale, cudaStream_t stream) {
-  if ((long)((Sq + 127) / 128) * B * H >= num_sms())
+  if (two_row_tiles(B, H, Sq))
     return launch_rows<D, 2>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
                              causal, q_offset, k_offset, qscale, scale, stream);
   return launch_rows<D, 1>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
@@ -780,5 +784,32 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
     return dtype == 0
         ? wide::launch<float>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, scale, s)
         : wide::launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, scale, s);
+  return -1;
+}
+
+// The tiles a call of hvd_flash_bwd_dq at this shape launches, as the
+// launchers above choose them: tiles[0] q rows and tiles[1] keys of a
+// block's tile, tiles[2] its dynamic shared memory in bytes.  Launches
+// nothing; returns -1 where hvd_flash_bwd_dq would.
+extern "C" int hvd_flash_bwd_dq_tiles(int dtype, int B, int H, int Sq, int D,
+                                      int* tiles) {
+  auto put = [tiles](int bq, int bk, size_t smem) {
+    tiles[0] = bq, tiles[1] = bk, tiles[2] = (int)smem;
+    return 0;
+  };
+  const bool two = tc::two_row_tiles(B, H, Sq);
+  if (dtype == 1 && D == 64)
+    return two ? put(128, 64, tc::Smem<64, 2>::kBytes)
+               : put(64, 64, tc::Smem<64, 1>::kBytes);
+  if (dtype == 1 && D == 128)
+    return two ? put(128, 64, tc::Smem<128, 2>::kBytes)
+               : put(64, 64, tc::Smem<128, 1>::kBytes);
+  if (dtype == 0 && D == 64) return put(Rows<64>::kBQ, kBK, smem_bytes<64>());
+  if (dtype == 0 && D == 128)
+    return put(Rows<128>::kBQ, kBK, smem_bytes<128>());
+  if ((dtype == 0 || dtype == 1) && D == 256)
+    return put(Rows<256>::kBQ, kBK, smem_bytes<256>());
+  if ((dtype == 0 || dtype == 1) && D > 256 && D % 64 == 0)
+    return put(wide::kBQ, kBK, wide::smem_bytes());
   return -1;
 }

@@ -702,11 +702,15 @@ int launch_rows(const void* q, const void* k, const void* v, void* out,
 }
 
 // 128-row q tiles when they give every SM a block, else 64-row ones.
+inline bool two_row_tiles(int B, int H, int Sq) {
+  return (long)((Sq + 127) / 128) * B * H >= num_sms();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            void* lse, int B, int H, int Sq, int Sk, int causal, int q_offset,
            int k_offset, float qscale, cudaStream_t stream) {
-  if ((long)((Sq + 127) / 128) * B * H >= num_sms())
+  if (two_row_tiles(B, H, Sq))
     return launch_rows<D, 2>(q, k, v, out, lse, B, H, Sq, Sk, causal,
                              q_offset, k_offset, qscale, stream);
   return launch_rows<D, 1>(q, k, v, out, lse, B, H, Sq, Sk, causal, q_offset,
@@ -743,5 +747,30 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
     return dtype == 0
         ? wide::launch<float>(q, k, v, out, lse, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s)
         : wide::launch<__nv_bfloat16>(q, k, v, out, lse, B, H, Sq, Sk, D, causal, q_offset, k_offset, qscale, s);
+  return -1;
+}
+
+// The tiles a call of hvd_flash_fwd at this shape launches, as the
+// launchers above choose them: tiles[0] q rows and tiles[1] keys of a
+// block's tile, tiles[2] its dynamic shared memory in bytes.  Launches
+// nothing; returns -1 where hvd_flash_fwd would.
+extern "C" int hvd_flash_fwd_tiles(int dtype, int B, int H, int Sq, int D,
+                                   int* tiles) {
+  auto put = [tiles](int bq, int bk, size_t smem) {
+    tiles[0] = bq, tiles[1] = bk, tiles[2] = (int)smem;
+    return 0;
+  };
+  const bool two = tc::two_row_tiles(B, H, Sq);
+  if (dtype == 1 && D == 64)
+    return two ? put(128, 64, tc::Smem<64, 2>::kBytes)
+               : put(64, 64, tc::Smem<64, 1>::kBytes);
+  if (dtype == 1 && D == 128)
+    return two ? put(128, 64, tc::Smem<128, 2>::kBytes)
+               : put(64, 64, tc::Smem<128, 1>::kBytes);
+  if ((dtype == 0 && (D == 64 || D == 128 || D == 256)) ||
+      (dtype == 1 && D == 256))
+    return put(kBQ, kBK, smem_bytes(D));
+  if ((dtype == 0 || dtype == 1) && D > 256 && D % 64 == 0)
+    return put(kBQ, kBK, wide::smem_bytes());
   return -1;
 }

@@ -27,7 +27,15 @@ verify and ``return_kv`` calls never rematerialise.  With
 dtype and ``_linear``'s cast is a no-op (train them with
 ``training.master_weights``).
 
-Mixture-of-experts and context parallelism are not ported yet.
+Context parallelism, as in the JAX package: with ``context_axis`` (a
+``torch.distributed`` process group; ``None`` is off) and ``context_plan``
+(``ops/schedule_plan.plan_context``) set, attention runs the plan's ring or
+zigzag flash path over the group, each rank's positions come from the
+plan's layout, and the plan's ``remat`` replaces ``cfg.remat``; an explicit
+``attention_fn`` or ``positions=`` wins.  ``forward`` also takes
+``position_offset=`` (a contiguous shard's first global position) and
+``positions=`` (``[S]`` or ``[B, S]``).  Mixture-of-experts is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -62,8 +70,13 @@ class TransformerConfig:
     logits_dtype: Any = torch.float32
     # True runs every norm through the RMSNorm kernel.
     fused_norm: bool | None = None
-    # Rematerialise each block in the backward pass (training calls only).
+    # Rematerialise each block in the backward pass (training calls only);
+    # with a context_plan, the plan's remat wins.
     remat: bool = False
+    # The context-parallel process group (None: off) and the ContextPlan
+    # that wires attention, positions and remat from it.
+    context_axis: Any = None
+    context_plan: Any = None
 
 
 def config_162m(**overrides) -> TransformerConfig:
@@ -200,7 +213,14 @@ class Attention(nn.Module):
             out = cached_decode_attention(q, k_cache, v_cache, lengths)
             return _linear(out.reshape(b, s, -1), self.o, cfg.dtype), \
                 (k_cache, v_cache)
-        attn = cfg.attention_fn or dense_causal_attention
+        attn = cfg.attention_fn
+        if attn is None and cfg.context_axis is not None and \
+                cfg.context_plan is not None:
+            from horovod_tpu_torch.parallel.context import \
+                context_attention_fn
+
+            attn = context_attention_fn(cfg.context_axis, cfg.context_plan)
+        attn = attn or dense_causal_attention
         out = _linear(attn(q, k, v, causal=True).reshape(b, s, -1), self.o,
                       cfg.dtype)
         if return_kv:
@@ -255,6 +275,9 @@ class Transformer(nn.Module):
 
     * ``return_kv=True`` — a prefill: also return the per-layer
       rotary-embedded K and raw V as two stacked ``[L, B, S, H, D]`` tensors.
+    * ``position_offset`` shifts a contiguous sequence shard's positions;
+      ``positions`` (``[S]`` or ``[B, S]`` global positions) gives them
+      outright, for a non-contiguous (zigzag) shard.
     * ``kv_cache=(k, v)`` + ``lengths`` — one cache step: ``tokens`` is
       ``[B, S_q]`` at positions ``lengths[b] + i``; returns ``(logits, (k,
       v))`` with the caches written in place, logits ``[B, vocab]`` when
@@ -277,18 +300,32 @@ class Transformer(nn.Module):
         self.lm_head = nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False,
                                  dtype=cfg.param_dtype, device=device)
 
-    def forward(self, tokens, kv_cache=None, lengths=None, return_kv=False):
+    def forward(self, tokens, position_offset=0, positions=None,
+                kv_cache=None, lengths=None, return_kv=False):
         cfg = self.cfg
         decode = kv_cache is not None
         tokens = tokens.long()
         x = self.embed(tokens).to(cfg.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         if decode:
             lengths = lengths.long()
-            positions = lengths[:, None] + positions
+            positions = lengths[:, None] + torch.arange(
+                tokens.shape[1], device=tokens.device)[None]
+        if positions is None and cfg.context_axis is not None and \
+                cfg.context_plan is not None:
+            from horovod_tpu_torch.parallel.context import context_positions
+
+            positions = context_positions(cfg.context_axis, tokens.shape[1],
+                                          cfg.context_plan, tokens.device)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device) + position_offset
+        positions = torch.as_tensor(positions, device=tokens.device)
+        if positions.dim() == 1:
+            positions = positions[None]
         positions = positions.expand(tokens.shape)
-        remat = cfg.remat and not decode and not return_kv \
-            and torch.is_grad_enabled()
+        remat = (cfg.remat if cfg.context_plan is None
+                 else cfg.context_plan.remat) and not decode \
+            and not return_kv and torch.is_grad_enabled()
         kvs = []
         for i, block in enumerate(self.layers):
             if decode:

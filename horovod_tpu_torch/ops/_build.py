@@ -54,7 +54,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._lib = self._fn = None
         self._lock = threading.Lock()
 
     def sources(self) -> list[str]:
@@ -101,11 +101,22 @@ class Kernel:
                 out = self.library_path()
                 if not os.path.exists(out):
                     self._compile(out)
-                fn = getattr(ctypes.CDLL(out), self.symbol)
+                self._lib = ctypes.CDLL(out)
+                fn = getattr(self._lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn
             return self._fn
+
+    def entry(self, symbol: str, argtypes):
+        """Another C entry point of this kernel's library, built and loaded
+        as :meth:`load` does.  It is called directly and counts no
+        launch: the library's queries launch nothing."""
+        self.load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
     def __call__(self, *args) -> None:
         rc = self.load()(*args)

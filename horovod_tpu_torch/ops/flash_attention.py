@@ -110,11 +110,36 @@ def _visible(s_q, s_k, causal, q_offset, k_offset, device):
     return qpos[:, None] >= kpos[None, :]
 
 
+# f32 scores the plain versions hold at once: longer rows of queries are
+# taken in chunks, so that a long sequence's [B, H, S_q, S_k] scores never
+# exist whole (at S = 32768 and 16 heads they would take 68.7 GB).
+PLAIN_CHUNK_ELEMS = 1 << 28
+
+
+def _q_chunks(q, s_k):
+    """``(start, stop)`` of the chunks of query rows the plain versions
+    take in turn; one chunk unless the scores pass
+    :data:`PLAIN_CHUNK_ELEMS`."""
+    b, s_q, h = q.shape[:3]
+    rows = max(1, PLAIN_CHUNK_ELEMS // max(b * h * s_k, 1))
+    return [(i, min(i + rows, s_q)) for i in range(0, s_q, rows)] or [(0, 0)]
+
+
 def flash_attention_reference(q, k, v, causal: bool = True, q_offset=0,
                               k_offset=0):
     """Plain PyTorch version of the forward kernel's arithmetic, dense over
     all (q, k) pairs: same q fold and rounding, same exp2-domain softmax,
     same output and lse contract.  Returns ``(out, lse)``."""
+    chunks = _q_chunks(q, k.shape[1])
+    if len(chunks) > 1:
+        parts = [_flash_reference(q[:, i:j], k, v, causal, q_offset + i,
+                                  k_offset) for i, j in chunks]
+        return (torch.cat([o for o, _ in parts], dim=1),
+                torch.cat([lse for _, lse in parts], dim=1))
+    return _flash_reference(q, k, v, causal, q_offset, k_offset)
+
+
+def _flash_reference(q, k, v, causal, q_offset, k_offset):
     mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset,
                     q.device)
     s = torch.einsum("bqhd,bkhd->bhqk", _fold_q(q), k.float())
@@ -150,20 +175,27 @@ def flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal: bool = True,
                            q_offset=0, k_offset=0):
     """Plain PyTorch version of the dq kernel: ``scale * Σ_k ds·K``, in
     q's dtype."""
-    _, ds, _ = _bwd_p_ds(q, k, v, dout, lse, delta, causal, q_offset,
-                         k_offset)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * q.shape[-1] ** -0.5
-    return dq.to(q.dtype)
+    parts = []
+    for i, j in _q_chunks(q, k.shape[1]):
+        _, ds, _ = _bwd_p_ds(q[:, i:j], k, v, dout[:, i:j], lse[:, i:j],
+                             delta[:, i:j], causal, q_offset + i, k_offset)
+        parts.append(torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+                     * q.shape[-1] ** -0.5)
+    return torch.cat(parts, dim=1).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool = True,
                             q_offset=0, k_offset=0):
     """Plain PyTorch version of the dk/dv kernel: ``dk = ln 2 · Σ_q dsᵀ·q̃``
-    and ``dv = Σ_q pᵀ·dO``, in k's and v's dtypes."""
-    p, ds, qs = _bwd_p_ds(q, k, v, dout, lse, delta, causal, q_offset,
-                          k_offset)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs) * LN2
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.to(q.dtype).float())
+    and ``dv = Σ_q pᵀ·dO``, in k's and v's dtypes (summed over the chunks
+    of query rows in turn)."""
+    dk = dv = 0.0
+    for i, j in _q_chunks(q, k.shape[1]):
+        p, ds, qs = _bwd_p_ds(q[:, i:j], k, v, dout[:, i:j], lse[:, i:j],
+                              delta[:, i:j], causal, q_offset + i, k_offset)
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qs) * LN2
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p,
+                               dout[:, i:j].to(q.dtype).float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -186,6 +218,89 @@ def kernel_head_dim(d: int) -> int:
         if d <= kd:
             return kd
     return -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
+
+
+# Streaming multiprocessors of the card the kernels are built for (H100
+# SXM), where no card is present: the tensor-core forward and dq take
+# 128-row q tiles when those give every SM a block, as their launchers
+# decide from the card's own count.
+H100_SMS = 132
+
+
+def _card_sms() -> int:
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    return H100_SMS
+
+
+def kernel_tiles(head_dim: int, dtype_bytes: int = 2, s_q: int = 1,
+                 batch_heads: int = 1, sms: int | None = None) -> dict:
+    """``{kernel: (block_q, block_k, shared-memory bytes a block)}`` of the
+    three flash kernels at one call's shape, as their launchers in
+    ``csrc/flash_*.cu`` choose them: on the tensor cores (bf16, padded D of
+    64 or 128) 64-key tiles in a two-stage TMA ring, with 128-row q tiles
+    for the forward and dq when ``ceil(s_q / 128) · batch_heads`` reaches
+    ``sms`` (default: the card's count, or :data:`H100_SMS` without one),
+    else 64, and 64-key dk/dv blocks over 64-row q tiles; on the CUDA
+    cores (f32, or D = 256) 64 × 64 f32 tiles, with 32-row dq and 32-key
+    dk/dv tiles at D = 256; past 256 the wide route's 64 × 64 tiles of
+    64-column chunks.  This needs no card, so a plan can be made anywhere;
+    :func:`launcher_tiles` asks the built launchers themselves, and
+    ``chip_smoke.py`` holds the two equal."""
+    if sms is None:
+        sms = _card_sms()
+    d = kernel_head_dim(head_dim)
+    if dtype_bytes == 2 and d in (64, 128):
+        tile = (d // 64) * 64 * 128          # 64 rows of d bf16, in chunks
+        bars = 8 * 5 + 1024                  # barriers, alignment slack
+        nwg = 2 if -(-s_q // 128) * batch_heads >= sms else 1
+        return {"flash_fwd": (64 * nwg, 64, (nwg + 4) * tile + bars),
+                "flash_bwd_dq": (64 * nwg, 64, (2 * nwg + 4) * tile + bars),
+                "flash_bwd_dkv": (64, 64, 6 * tile + 2 * 2 * 64 * 4 + bars)}
+    f32 = 4
+    if d > 256:                              # the wide route, 64-col chunks
+        c = _WIDE_CHUNK
+        return {"flash_fwd": (64, 64, f32 * (64 * c + 64 * (c + 1) + 64 * c
+                                             + 8 * 4 * 64)),
+                "flash_bwd_dq": (64, 64, f32 * (2 * 64 * c + 2 * 64 * (c + 1)
+                                                + 64 * c + 8 * 4 * 64
+                                                + 3 * 64)),
+                "flash_bwd_dkv": (64, 64, f32 * (2 * 64 * c
+                                                 + 2 * 64 * (c + 1)
+                                                 + 2 * 64 * c
+                                                 + 2 * 8 * 4 * 64 + 3 * 64))}
+    bq_dq = bk_dkv = 32 if d > 128 else 64
+    return {"flash_fwd": (64, 64, f32 * (64 * d + 64 * (d + 1) + 64 * d
+                                         + 8 * 4 * 64)),
+            "flash_bwd_dq": (bq_dq, 64, f32 * (2 * bq_dq * d + 2 * 64 * (d + 1)
+                                               + 8 * 4 * 64 + 3 * bq_dq)),
+            "flash_bwd_dkv": (64, bk_dkv, f32 * (2 * bk_dkv * d
+                                                 + 2 * 64 * (d + 1)
+                                                 + 2 * 8 * 4 * 64 + 3 * 64))}
+
+
+def launcher_tiles(head_dim: int, dtype_bytes: int = 2, s_q: int = 1,
+                   batch_heads: int = 1, device=None) -> dict:
+    """:func:`kernel_tiles`'s answer from the built launchers on the card:
+    each kernel's library reports the tiles and shared memory its launch
+    at this shape would take (``hvd_flash_*_tiles``).  Builds the kernels
+    if needed; launches nothing."""
+    d = kernel_head_dim(head_dim)
+    dtype = {2: _DTYPES[torch.bfloat16], 4: _DTYPES[torch.float32]}[
+        dtype_bytes]
+    tiles = {}
+    for kernel in (KERNEL, DQ_KERNEL, DKV_KERNEL):
+        query = kernel.entry(kernel.symbol + "_tiles",
+                             [_I] * 5 + [ctypes.POINTER(ctypes.c_int)])
+        got = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            rc = query(dtype, 1, batch_heads, s_q, d, got)
+        if rc:
+            raise RuntimeError(f"{kernel.name}: no launch at dtype_bytes="
+                               f"{dtype_bytes}, head dim {d}")
+        tiles[kernel.name] = tuple(got)
+    return tiles
 
 
 def _kernel_layout(d_kernel, *ts):

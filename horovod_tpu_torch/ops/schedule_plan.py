@@ -32,10 +32,17 @@ rank's quantized probe (one ``all_reduce(MIN)``).  A set
 ``HVD_TPU_DEVICE_HEADROOM_MB`` skips the probe and its collective.
 
 Every decision is observable: :func:`overlap_plan` returns the last plan,
-and rank 0 logs one line per distinct decision.  The JAX package also puts
-an ``OVERLAP_PLAN`` instant on the native engine's timeline; the port has
-no engine yet, so only the log line is written.  The long-context
-``ContextPlan`` half of the JAX module is not ported yet.
+rank 0 logs one line per distinct decision, and each distinct decision puts
+an ``OVERLAP_PLAN`` instant on the eager engine's timeline when an engine
+is running with one (``HOROVOD_TIMELINE``), as the JAX package does.
+
+The long-context half, :func:`plan_context`, makes one
+:class:`ContextPlan` per long-context workload (shard width, plain or
+zigzag layout, the flash kernels' tiles, the remat policy) for
+``parallel/context.py`` and ``models/transformer.py``; its decisions are
+the JAX package's, except for the tiles, which are the port's kernels'
+own (see :class:`ContextPlan`).  :func:`context_plan` returns the last one,
+and a ``CONTEXT_PLAN`` instant lands beside ``OVERLAP_PLAN``.
 """
 
 from __future__ import annotations
@@ -330,14 +337,30 @@ def _record(plan: BucketPlan) -> None:
         fresh = key not in _logged_keys
         if fresh:
             _logged_keys.add(key)
-    if fresh and _is_rank0():
-        hr = ("unknown" if plan.headroom_mb is None
-              else f"{plan.headroom_mb:.0f}MB")
+    if not fresh:
+        return
+    hr = ("unknown" if plan.headroom_mb is None
+          else f"{plan.headroom_mb:.0f}MB")
+    if _is_rank0():
         _log.info(
             "overlap plan: planner=%s width=%d headroom=%s depth=%d "
             "tensors=%d bytes=%d — %s", plan.planner, plan.width, hr,
             plan.chain_depth, plan.tensor_count, plan.total_bytes,
             plan.reason)
+    _timeline_instant(
+        "overlap_plan",
+        f"OVERLAP_PLAN planner={plan.planner} width={plan.width} "
+        f"headroom={hr} depth={plan.chain_depth}")
+
+
+def _timeline_instant(row: str, label: str) -> None:
+    """An instant on the running eager engine's timeline (peeked, never
+    started; a no-op without a timeline file)."""
+    from horovod_tpu_torch.core import engine
+
+    eng = engine.peek_engine()
+    if eng is not None:
+        eng.timeline_instant(row, label)
 
 
 def _is_rank0() -> bool:
@@ -346,9 +369,215 @@ def _is_rank0() -> bool:
 
 def _reset_for_tests() -> None:
     """Drop the cached probe and log state (test isolation only)."""
-    global _last_plan
+    global _last_plan, _last_context_plan
     with _probe_lock:
         _probe_cache.clear()
     with _plan_lock:
         _last_plan = None
         _logged_keys.clear()
+        _last_context_plan = None
+        _context_logged_keys.clear()
+
+
+# ---------------------------------------------------------------------------
+# ContextPlan: long-context layout planning (ring / zigzag flash attention)
+# ---------------------------------------------------------------------------
+# Shard width, plain-or-zigzag layout, the remat policy and the flash tiles
+# are one decision from one memory model, not four hand-set knobs.
+
+# Remat engages past this many MB of estimated activations a rank when no
+# headroom is known (the CPU, or no HVD_TPU_DEVICE_HEADROOM_MB): the JAX
+# package's constant, kept so that both plan alike there.
+DEFAULT_CTX_REMAT_THRESHOLD_MB = 2048.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ContextWorkload:
+    """Static description of one long-context training workload; the plan
+    is a deterministic function of (workload, width, headroom), so every
+    rank makes the same one."""
+
+    seq_len: int
+    num_heads: int
+    head_dim: int
+    batch: int = 1
+    embed_dim: int = 0       # 0 -> num_heads * head_dim
+    mlp_dim: int = 0         # 0 -> 4 * model_dim
+    num_layers: int = 1
+    causal: bool = True
+    dtype_bytes: int = 2     # bf16 activations
+
+    @property
+    def model_dim(self) -> int:
+        return self.embed_dim or self.num_heads * self.head_dim
+
+    @property
+    def ff_dim(self) -> int:
+        return self.mlp_dim or 4 * self.model_dim
+
+    def activation_mb(self, width: int) -> float:
+        """Estimated live activation MB a rank without remat: the residual
+        stream, the attention q/k/v/out set and the MLP hidden, per layer
+        and local token (the JAX package's model: it prices a binary remat
+        decision, not an allocator)."""
+        per_token = (2 * self.model_dim + 4 * self.num_heads * self.head_dim
+                     + 2 * self.ff_dim) * self.dtype_bytes
+        s_local = max(self.seq_len // max(width, 1), 1)
+        return (self.num_layers * self.batch * s_local * per_token
+                / (1024.0 * 1024.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class ContextPlan:
+    """One planner decision for one long-context workload: the sequence
+    layout (``plain`` / ``zigzag``), the remat policy, and the flash tiles.
+
+    ``width``, ``seq_local``, ``layout``, ``remat``, ``causal``,
+    ``headroom_mb`` and ``est_activation_mb`` are the JAX package's
+    decisions on the same inputs.  The tiles are not: the JAX plan picks
+    ``block_q`` / ``block_k`` for its Pallas kernels and fits them to TPU
+    VMEM (``est_vmem_kb``), while the port's kernels choose their own tiles
+    at launch from the head dim, the dtype and the grid.  So here
+    ``block_q`` and ``block_k`` are the tiles the forward kernel runs at
+    one call of this plan (a zigzag half-pair or a plain shard),
+    ``tiles`` gives ``[block_q, block_k, shared-memory bytes]`` for each of
+    the three flash kernels (``ops.flash_attention.kernel_tiles``), and
+    ``smem_bytes``, in place of ``est_vmem_kb``, is the largest of their
+    blocks' shared memory.  No tile can be pinned: the JAX package's
+    ``block_q=`` / ``block_k=`` keywords and ``HVD_TPU_CTX_BLOCK_*``
+    variables have no counterpart here."""
+
+    planner: str
+    width: int
+    seq_local: int
+    layout: str
+    block_q: int
+    block_k: int
+    remat: bool
+    causal: bool
+    headroom_mb: float | None
+    smem_bytes: int
+    tiles: dict
+    est_activation_mb: float
+    reason: str
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["tiles"] = {k: list(v) for k, v in self.tiles.items()}
+        return d
+
+
+def plan_context(workload: ContextWorkload, width: int,
+                 headroom_mb: float | None = None, *,
+                 layout: str | None = None,
+                 remat: bool | None = None) -> ContextPlan:
+    """Make (and record) the long-context plan for one workload.
+
+    Resolution order per field, most explicit first: a keyword argument,
+    the ``HVD_TPU_CTX_*`` environment override, then the planner.
+    ``headroom_mb`` defaults to :func:`probe_headroom_mb`, the memory model
+    the bucket planner budgets against."""
+    from horovod_tpu_torch.ops.flash_attention import kernel_tiles
+
+    if width < 1:
+        raise ValueError(f"context width must be >= 1, got {width}")
+    if workload.seq_len % width:
+        raise ValueError(
+            f"seq_len {workload.seq_len} not divisible by context width "
+            f"{width}")
+    s_local = workload.seq_len // width
+    if headroom_mb is None:
+        headroom_mb = probe_headroom_mb()
+
+    why = []
+    layout = layout if layout is not None else env.ctx_layout()
+    if layout in (None, "auto"):
+        zig_ok = workload.seq_len % (2 * width) == 0 and width > 1
+        if workload.causal and zig_ok:
+            layout = "zigzag"
+            why.append("causal multi-shard -> zigzag (balanced causal "
+                       "triangle; plain would idle early ranks)")
+        else:
+            layout = "plain"
+            why.append("plain layout ("
+                       + ("width 1" if width <= 1 else
+                          "non-causal" if not workload.causal else
+                          "seq_len not divisible by 2*width")
+                       + ("; causal step skipping active"
+                          if workload.causal and width > 1 else "") + ")")
+    else:
+        why.append(f"layout pinned to {layout}")
+    if layout == "zigzag" and workload.seq_len % (2 * width):
+        raise ValueError(
+            f"zigzag needs seq_len divisible by 2*width "
+            f"({workload.seq_len} vs width={width})")
+
+    # One kernel call's queries: a zigzag shard is two chunks.
+    chunk = max(s_local // 2 if layout == "zigzag" else s_local, 1)
+    tiles = kernel_tiles(workload.head_dim, workload.dtype_bytes, chunk,
+                         workload.batch * workload.num_heads)
+    bq, bk, _ = tiles["flash_fwd"]
+    why.append(f"Hopper tiles: forward {bq}x{bk}")
+
+    act_mb = workload.activation_mb(width)
+    remat = remat if remat is not None else env.ctx_remat_override()
+    if remat is None:
+        act_budget = (headroom_mb if headroom_mb is not None
+                      else DEFAULT_CTX_REMAT_THRESHOLD_MB)
+        remat = act_mb > act_budget
+        why.append(
+            f"activations ~{act_mb:.0f}MB vs "
+            + (f"headroom {headroom_mb:.0f}MB" if headroom_mb is not None
+               else f"default budget {act_budget:.0f}MB")
+            + (" -> full-layer remat" if remat
+               else " -> remat dropped (ring shards the sequence)"))
+    else:
+        why.append(f"remat pinned to {remat}")
+
+    plan = ContextPlan(
+        planner="context", width=width, seq_local=s_local, layout=layout,
+        block_q=bq, block_k=bk, remat=bool(remat), causal=workload.causal,
+        headroom_mb=headroom_mb,
+        smem_bytes=max(t[2] for t in tiles.values()), tiles=tiles,
+        est_activation_mb=round(act_mb, 3), reason="; ".join(why))
+    _record_context(plan)
+    return plan
+
+
+_last_context_plan: ContextPlan | None = None
+_context_logged_keys: set = set()
+
+
+def context_plan() -> dict | None:
+    """The most recent :class:`ContextPlan` as a dict
+    (``hvd.context_plan()``), or None before any long-context workload has
+    been planned."""
+    with _plan_lock:
+        return (_last_context_plan.as_dict()
+                if _last_context_plan is not None else None)
+
+
+def _record_context(plan: ContextPlan) -> None:
+    global _last_context_plan
+    key = (plan.width, plan.seq_local, plan.layout, plan.block_q,
+           plan.block_k, plan.remat, plan.causal, plan.headroom_mb)
+    with _plan_lock:
+        _last_context_plan = plan
+        fresh = key not in _context_logged_keys
+        if fresh:
+            _context_logged_keys.add(key)
+    if not fresh:
+        return
+    if _is_rank0():
+        hr = ("unknown" if plan.headroom_mb is None
+              else f"{plan.headroom_mb:.0f}MB")
+        _log.info(
+            "context plan: width=%d s_local=%d layout=%s block_q=%d "
+            "block_k=%d remat=%s headroom=%s — %s", plan.width,
+            plan.seq_local, plan.layout, plan.block_q, plan.block_k,
+            plan.remat, hr, plan.reason)
+    _timeline_instant(
+        "context_plan",
+        f"CONTEXT_PLAN width={plan.width} layout={plan.layout} "
+        f"block_q={plan.block_q} block_k={plan.block_k} "
+        f"remat={plan.remat}")

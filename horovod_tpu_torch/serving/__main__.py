@@ -26,7 +26,12 @@ has drained.  With ``HVD_TPU_ELASTIC=1`` the fleet admits a replica
 started with ``HVD_TPU_ELASTIC_JOIN=1``: it builds its model (from its own
 ``--seed``), joins by ticket, and pulls the weights of its ring neighbour
 over the bulk data plane into ``backend.swap_params``, with no disk read;
-the neighbour ships its ``model.state_dict()`` on the grow.  The fleet's
+the neighbour ships its ``model.state_dict()`` on the grow.  A joiner
+started with ``--standby`` builds and warms its model, prints ``STANDBY``
+and waits for a line on standard input before it knocks: a warm standby
+that its supervisor admits when it decides to grow.  Each fleet replica
+prints one line when its first request completes, and its report records
+where its traffic stood when the fleet grew (``grew_at``).  The fleet's
 report adds the tick's host time; the joiner's, the clone's bytes,
 transport and pull time, its wait for admission, its time from admission
 to its first token, and a CRC per tensor of its weights after the swap; the donor's, the ship's
@@ -205,7 +210,8 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
     A drain that a grow overtakes is void (see :func:`_leave`): the fleet,
     joiner included, serves on and drains again.
     ``info["first_token_t"]`` is the engine-clock time of this replica's
-    first token."""
+    first token; ``info["grew_at"]`` the requests this replica had
+    submitted and completed when the fleet last grew."""
     arrivals = loadgen.make_arrivals(w)
     # Rank 0 runs the live autoscale policy over the tick aggregates;
     # verdicts land as AUTOSCALE timeline instants and one stdout line
@@ -225,9 +231,13 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
                      and serving._active_count() == 0)
         serving.done_flag = 1.0 if mine_done else 0.0
         try:
+            completed = len(done)
             done.extend(serving.step())
             if "first_token_t" not in info and serving.counters["tokens"]:
                 info["first_token_t"] = serving.clock()
+            if done and not completed:
+                print(f"[serve r{serving.collective.rank}] first request "
+                      f"completed", flush=True)
             if serving.collective.rank == 0 and not mine_done:
                 verdict = auto.decide(
                     replicas=serving.collective.size,
@@ -252,6 +262,9 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
             serving.collective = em.peek_engine()
             auto.collective = serving.collective
             drained_h = None  # handle belonged to the replaced engine
+            if ev.grew:
+                info["grew_at"] = {"submitted": i, "completed": len(done),
+                                   "offered": len(arrivals)}
             if ev.grew and serving.collective.rank == ev.new_size - 2:
                 info["shipped"] = _ship(serving.collective, ev.new_size - 1,
                                         backend)
@@ -273,6 +286,10 @@ def main(argv=None) -> int:
     ap.add_argument("--probe", type=int, default=0, metavar="N",
                     help="after the run, serve a fixed prompt alone for N "
                          "greedy tokens and report them")
+    ap.add_argument("--standby", action="store_true",
+                    help="a joiner: once its model is built and warm, "
+                         "print STANDBY and wait for a line on standard "
+                         "input before joining the fleet")
     args = ap.parse_args(argv)
     rank = int(os.environ.get("JAX_PROCESS_ID", "0"))
     n = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
@@ -289,6 +306,9 @@ def main(argv=None) -> int:
     info: dict = {}
     eng = None
     if fleet:
+        if joining and args.standby:
+            print("STANDBY", flush=True)
+            sys.stdin.readline()
         eng = _fleet_engine(rank, n, int(port), joining, info)
         if joining:
             info["pulled"] = _pull(eng, backend)
@@ -315,8 +335,9 @@ def main(argv=None) -> int:
         if "first_token_t" in info:
             out["join_to_first_token_ms"] = \
                 (info["first_token_t"] - info["admitted_t"]) * 1e3
-    if "shipped" in info:
-        out["shipped"] = info["shipped"]
+    for key in ("shipped", "grew_at"):
+        if key in info:
+            out[key] = info[key]
     if args.probe:
         probe = ServingEngine(backend, cfg)
         req = probe.submit(probe_prompt(cfg, vocab), args.probe)

@@ -27,6 +27,7 @@ Every wait is deadline-bounded and every port is a free one.
 from __future__ import annotations
 
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -48,12 +49,38 @@ FLEET_ENV = {
 }
 
 
+def _ephemeral_range() -> tuple[int, int]:
+    """The kernel's range of local ports for outgoing connections."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999
+
+
 def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A port free to bind now, for a listener that binds it later.
+
+    It is drawn below the kernel's ephemeral range: a port handed out by
+    ``bind(0)`` comes from that range, where every outgoing connection of
+    every process on the host also takes its local port, so between the
+    pick and the listener's bind a busy host's connections could take it.
+    Below the range only another explicit pick can."""
+    lo, _ = _ephemeral_range()
+    floor = max(1024, lo // 2)
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(floor, lo)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 class Replica:

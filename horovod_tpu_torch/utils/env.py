@@ -1,5 +1,6 @@
 """Environment knobs the port reads: tensor fusion, gradient overlap, the
-device headroom, ``HVD_TPU_SERVE_*``, and those of the native core, its
+device headroom, the long-context plan (``HVD_TPU_CTX_*``),
+``HVD_TPU_SERVE_*``, and those of the native core, its
 elastic membership, checkpointing, the coordinator tree and the bulk data
 plane.
 
@@ -98,6 +99,39 @@ def device_headroom_mb() -> float | None:
             f"(headroom stays unknown)", RuntimeWarning, stacklevel=2)
         return None
     return max(value, 0.0)
+
+
+_CTX_LAYOUTS = ("auto", "plain", "zigzag")
+
+
+def ctx_layout() -> str:
+    """``HVD_TPU_CTX_LAYOUT`` — long-context layout override consulted by
+    ``ops.schedule_plan.plan_context``: ``plain``/``zigzag`` pin the
+    sequence layout, ``auto`` (the default) lets the planner route causal
+    multi-shard workloads to zigzag.  Malformed values degrade to ``auto``
+    with a warning (launch-script typos must not fork the layout)."""
+    raw = _get("CTX_LAYOUT")
+    if raw in (None, ""):
+        return "auto"
+    value = raw.strip().lower()
+    if value in _CTX_LAYOUTS:
+        return value
+    name = ("HOROVOD_CTX_LAYOUT" if "HOROVOD_CTX_LAYOUT" in os.environ
+            else "HVD_TPU_CTX_LAYOUT")
+    warnings.warn(
+        f"{name}={raw!r} is not one of {_CTX_LAYOUTS}; falling back to "
+        f"'auto'", RuntimeWarning, stacklevel=2)
+    return "auto"
+
+
+def ctx_remat_override() -> bool | None:
+    """``HVD_TPU_CTX_REMAT`` — force the long-context remat policy (``1``
+    full-layer remat, ``0`` none) instead of the planner's
+    activation-vs-headroom decision.  Unset: None (planner-decided)."""
+    raw = _get("CTX_REMAT")
+    if raw in (None, ""):
+        return None
+    return raw not in ("0", "false", "False")
 
 
 def _serve_number(name: str, default, cast, floor=None):

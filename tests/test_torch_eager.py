@@ -34,7 +34,6 @@ import json
 import multiprocessing
 import os
 import queue
-import socket
 import subprocess
 import sys
 import textwrap
@@ -85,11 +84,11 @@ DENSE = ("f32", "f16", "bf16", "i32", "i64", "f64")
 
 
 def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    # Below the ephemeral range, where no outgoing connection of a busy
+    # host can take it between the pick and the coordinator's bind.
+    from horovod_tpu_torch.serving.soak import free_port
+
+    return free_port()
 
 
 def _save(obj) -> bytes:
@@ -470,7 +469,9 @@ def _spawn(worker, n, tmp_path, *extra, timeout=None):
             rank, out = results.get(timeout=timeout or scaled(120))
             outs[rank] = torch.load(io.BytesIO(out), weights_only=False)
     except queue.Empty:
-        pytest.fail("a gloo worker did not report in time")
+        pytest.fail(f"a gloo worker did not report in time: ranks "
+                    f"{sorted(outs)} reported, exit codes "
+                    f"{[p.exitcode for p in procs]}")
     finally:
         for p in procs:
             p.join(timeout=60)

@@ -575,26 +575,35 @@ def test_worker_done_crcs_equal_jax_expected_completion():
 
 def test_fleet_cli_joiner_clones_and_serves_alike():
     # python -m horovod_tpu_torch.serving in fleet mode on the stub: two
-    # founders, then a joiner admitted mid-traffic that pulls the weights
+    # founders, and a joiner admitted mid-traffic that pulls the weights
     # over the direct stream; every request completes, every replica
-    # serves the probe alike.
+    # serves the probe alike.  The joiner is a warm standby (--standby):
+    # it is built first and knocks only when told, once both founders
+    # have completed a request, so the grow lands in their traffic however
+    # slowly each process starts; their reports show it did.
     import json
 
     port = soak.free_port()
     env = {**os.environ, **soak.FLEET_ENV,
            "HVD_TPU_COORDINATOR_PORT": str(port),
            "HVD_TPU_SERVE_BACKEND": "stub", "HVD_TPU_SERVE_QPS": "10",
-           "HVD_TPU_SERVE_DURATION_S": "2"}
+           "HVD_TPU_SERVE_DURATION_S": "4"}
     argv = [sys.executable, "-m", "horovod_tpu_torch.serving", "--probe", "4"]
-    fleet = [soak.Replica(argv, {**env, "JAX_PROCESS_ID": str(r),
-                                 "JAX_NUM_PROCESSES": "2"})
-             for r in range(2)]
+    joiner = soak.Replica(argv + ["--seed", "1", "--standby"], {
+        **env, "JAX_PROCESS_ID": "2", "JAX_NUM_PROCESSES": "3",
+        "HVD_TPU_ELASTIC_JOIN": "1"})
+    fleet = [joiner]
     try:
-        import time
-        time.sleep(1.0)
-        fleet.append(soak.Replica(argv + ["--seed", "1"], {
-            **env, "JAX_PROCESS_ID": "2", "JAX_NUM_PROCESSES": "3",
-            "HVD_TPU_ELASTIC_JOIN": "1"}))
+        assert joiner.wait_line("STANDBY", 90) is not None, \
+            "\n".join(joiner.lines)
+        fleet = [soak.Replica(argv, {**env, "JAX_PROCESS_ID": str(r),
+                                     "JAX_NUM_PROCESSES": "2"})
+                 for r in range(2)] + [joiner]
+        for r, founder in enumerate(fleet[:2]):
+            line = founder.wait_line(f"[serve r{r}] first request completed",
+                                     90)
+            assert line is not None, "\n".join(founder.lines)
+        joiner.send("join")
         reps = []
         for r in fleet:
             line = r.wait_line("SERVE_REPORT ", 90)
@@ -610,6 +619,11 @@ def test_fleet_cli_joiner_clones_and_serves_alike():
         # Every step ticks; the one a membership change cut did not finish
         # its tick.
         assert 0 < rep["ticks"] <= rep["steps"] <= rep["ticks"] + 1
+    for rep in reps[:2]:
+        # Admitted mid-traffic: each founder had completed requests and
+        # had not completed all of them.
+        grew = rep["grew_at"]
+        assert 0 < grew["completed"] < grew["offered"] == rep["offered"], rep
     shipped = [r["shipped"] for r in reps if "shipped" in r]
     assert len(shipped) == 1 and shipped[0]["transport"] == "direct"
     pulled = reps[-1]["pulled"]

@@ -498,3 +498,33 @@ def test_launcher_imports_no_torch_and_pins_no_platform():
     mods, platforms, flags = json.loads(out.strip().splitlines()[-1])
     assert "torch" not in mods and not [m for m in mods if _forbidden(m)]
     assert platforms is None and flags is None
+
+
+# -- long-context training ------------------------------------------------------
+
+LONGCTX_MODULES = (
+    "horovod_tpu_torch.parallel", "horovod_tpu_torch.parallel.ring_attention",
+    "horovod_tpu_torch.parallel.ulysses", "horovod_tpu_torch.parallel.context",
+    "horovod_tpu_torch.ops.schedule_plan", "horovod_tpu_torch.train_longseq")
+
+
+@pytest.mark.parametrize("mod", LONGCTX_MODULES)
+def test_long_context_module_is_checked(mod):
+    # Walked by the two import checks above, which it passes.
+    assert mod in _modules()
+    parts = mod.split(".")
+    path = os.path.join(REPO, *parts) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(REPO, *parts, "__init__.py")
+    test_no_import_statement_names_jax(path)
+
+
+def test_long_context_modules_alone_import_no_jax_and_nothing_of_horovod_tpu():
+    code = ("import json, sys\n"
+            f"for m in {LONGCTX_MODULES!r}: __import__(m)\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert not [m for m in json.loads(out.strip().splitlines()[-1])
+                if _forbidden(m)]
