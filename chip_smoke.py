@@ -208,6 +208,19 @@ line each:
                  flash call on the whole sequence, 3 steps with 4n = 8 of
                  each flash kernel a layer, the exchange's bytes and host
                  ms;
+   parallel_2proc — two processes on the card under the launcher
+                 (``--parallel-worker``), gloo, the 162M decoder at full
+                 width, B = 8, S = 1024, 1 warm-up and 3 timed steps a
+                 leg: the GPipe pipeline (2 stages of 6 blocks, 4
+                 microbatches) against the sequential model (the train
+                 bounds), MoE over both ranks (falling loss, tokens
+                 dropped, distinct experts), ZeRO-1 (parameters bitwise
+                 equal across ranks, half the optimizer state) and FSDP
+                 (half the parameter, gradient and state bytes), both
+                 against the replicated step's losses, and the
+                 tensor-parallel MLP against the dense one; exact
+                 launches a leg, the RMSNorm rows it launched checked by
+                 ``rmsnorm_rows``;
 9. resnet      — the ResNet-50 step of ``python -m
                  horovod_tpu_torch.train_resnet`` at full size (128 images
                  of 224×224×3 on the card, bf16 over f32 parameters,
@@ -224,7 +237,8 @@ line each:
                  the sum over the serve, serve_paged (a-d), router,
                  serve_fleet (summed over its replicas' reports), train,
                  train_eager, train_resume (summed over its processes),
-                 longctx and longctx_2proc (summed over its ranks) runs,
+                 longctx, longctx_2proc and parallel_2proc (summed over
+                 its ranks and legs) runs,
                  each counted from 0 around its own run
                  (``launches_by_run``).
 
@@ -293,18 +307,29 @@ LONGCTX_SEQS = (8192, 32768)
 LONGCTX_2PROC_SEQ = 8192
 LONGCTX_2PROC_STEPS = 3
 LONGCTX_TIMEOUT_S = 400.0
+# parallel_2proc: two processes on the card under the launcher (gloo), the
+# 162M decoder at full width and B = 8, S = 1024 (4 rows a rank but under
+# the pipeline, which runs all 8 as 4 microbatches of 2), 1 warm-up and 3
+# timed steps a leg; the tensor-parallel leg's ParallelMLP 768 -> 3072 ->
+# 768 over [8192, 768] bf16.
+PARALLEL_WARMUP, PARALLEL_STEPS, PARALLEL_MICROBATCHES = 1, 3, 4
+PARALLEL_TP_ROWS = 8192
+PARALLEL_TIMEOUT_S = 600.0
 # (B, S_q, S_k, causal, q_offset): [B, S, 6, 128] bf16.  The serving
 # prefill buckets, S=1000 (masked edge tiles), a longer and a non-causal
-# row, a query block past its keys, the training step's shape, and one
-# microbatch of it under `--accumulate 4` (B = 2).
+# row, a query block past its keys, the training step's shape, one
+# microbatch of it under `--accumulate 4` (B = 2, also a GPipe microbatch
+# of parallel_2proc), and a rank's half of it at width 2 (B = 4: the MoE,
+# ZeRO and FSDP legs of parallel_2proc).
 FLASH_SHAPES = (
     (1, 128, 128, True, 0), (1, 256, 256, True, 0), (1, 512, 512, True, 0),
     (1, 1000, 1000, True, 0), (1, 1024, 1024, True, 0),
     (1, 2048, 2048, True, 0), (1, 1024, 1024, False, 0),
     (1, 128, 1024, True, 896), (8, 1024, 1024, True, 0),
-    (2, 1024, 1024, True, 0))
+    (2, 1024, 1024, True, 0), (4, 1024, 1024, True, 0))
 FLASH_BWD_SHAPES = (
     (8, 1024, 1024, True, 0), (2, 1024, 1024, True, 0),
+    (4, 1024, 1024, True, 0),
     (1, 128, 128, True, 0),
     (1, 1000, 1000, True, 0), (1, 2048, 2048, True, 0),
     (1, 1024, 1024, False, 0), (1, 128, 1024, True, 896))
@@ -324,10 +349,10 @@ FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False, 6, torch.bfloat16),
     for dt in (torch.bfloat16, torch.float32))
 # [N, 768] bf16: every row count the main paths give the forward kernel
 # (8 decode slots; the paged verify block of 8 slots x 5; the prefill
-# buckets 128-1024; a microbatch of 2 x 1024; a training step's 8192),
-# and 1 and 1000.  ``main`` fails when a main path gives it another
+# buckets 128-1024; a microbatch of 2 x 1024; a rank's 4 x 1024 of the
+# 162M step at width 2; a training step's 8192), and 1 and 1000.  ``main`` fails when a main path gives it another
 # (``record_norm_rows``).
-RMS_ROWS = (1, 8, 40, 128, 256, 512, 1000, 1024, 2048, 8192)
+RMS_ROWS = (1, 8, 40, 128, 256, 512, 1000, 1024, 2048, 4096, 8192)
 # [N, 2048] bf16: the long-context step's rows, a rank's shard of S =
 # 8192 at width 2, and S = 8192 and 32768 at width 1 (rows of 4 KB: the
 # loop form).
@@ -338,11 +363,12 @@ LONGCTX_RMS_ROWS = (4096, 8192, 32768)
 RMS_CASES = tuple((torch.bfloat16, n, 768) for n in RMS_ROWS) + (
     (torch.float32, 8192, 768),) + tuple(
     (torch.bfloat16, n, 2048) for n in LONGCTX_RMS_ROWS)
-# (N, E) of the RMSNorm backward's checks: the 162M step's width, the
-# long-context step's, and widths past 7168 (the wide form, a block a
-# row).
-RMS_BWD_CASES = ((1000, 768), (2048, 768), (8192, 768), (1024, 8192),
-                 (1024, 12288)) + tuple((n, 2048) for n in LONGCTX_RMS_ROWS)
+# (N, E) of the RMSNorm backward's checks: the 162M step's width (a
+# microbatch, a rank's half at width 2, the whole step), the long-context
+# step's, and widths past 7168 (the wide form, a block a row).
+RMS_BWD_CASES = ((1000, 768), (2048, 768), (4096, 768), (8192, 768),
+                 (1024, 8192), (1024, 12288)) + tuple(
+    (n, 2048) for n in LONGCTX_RMS_ROWS)
 # The register form's longest row (csrc/rmsnorm_fwd.cu kRegRowBytes).
 RMS_REG_ROW_BYTES = 2048
 RMS_MAIN = 8192                         # one training step's tokens
@@ -3219,6 +3245,337 @@ def phase_longctx_2proc() -> dict:
                          for k in per}}
 
 
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _parallel_leg(tr, steps_fn=None) -> dict:
+    """``PARALLEL_WARMUP`` + ``PARALLEL_STEPS`` steps of a trainer, the
+    launches and collective calls counted over the timed steps alone:
+    losses, host ms a step, launches, calls and peak memory."""
+    from horovod_tpu_torch import train_parallel as tp
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.parallel import (collective_stats,
+                                            reset_collective_stats)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(tp.train_step(tr)) for _ in range(PARALLEL_WARMUP)]
+    digests = []
+    _build.reset_launches()
+    reset_collective_stats()
+    step_ms = []
+    for _ in range(PARALLEL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(tp.train_step(tr)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if steps_fn is not None:
+            digests.append(steps_fn())
+    calls = collective_stats()
+    out = {"losses": losses, "step_ms": step_ms, "launches": _launches(),
+           "calls_per_step": {k: v / PARALLEL_STEPS for k, v in
+                              calls.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **tp.memory_bytes(tr)}
+    if digests:
+        out["param_digests"] = digests
+    return out
+
+
+def _free() -> None:
+    """Free a finished leg's trainer before the next leg's peak is read:
+    optimizer hooks and FSDP's forward hooks hold their model in
+    reference cycles, which only the collector frees."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _memory_phases(tr) -> dict:
+    """One more step, its device memory read at each phase: bytes
+    allocated at the start, and allocated and peak after the forward
+    (the loss), the backward (with the strategy's gradient sync) and the
+    optimizer's step."""
+    from horovod_tpu_torch import train_parallel as tp
+
+    tr.opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    out = {"start": torch.cuda.memory_allocated()}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        out[name] = [torch.cuda.memory_allocated(),
+                     torch.cuda.max_memory_allocated()]
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    loss = tp.loss_fn(tr)
+    mark("forward")
+    loss.backward()
+    tp.sync_grads(tr)
+    del loss
+    mark("backward")
+    tr.opt.step()
+    mark("step")
+    return out
+
+
+def parallel_worker() -> None:
+    """One rank of ``parallel_2proc`` (``python -m horovod_tpu_torch.run
+    -np 2 -- python chip_smoke.py --parallel-worker``): prints one
+    ``PARALLEL_REPORT`` JSON line."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_parallel as tp
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.parallel import (ParallelMLP, moe_stats,
+                                            reset_moe_stats)
+    from horovod_tpu_torch.parallel.common import all_gather
+
+    # Two ranks on one card: gloo (NCCL refuses two ranks on one device),
+    # every collective's CUDA tensors staged through host memory.
+    basics.init(device="cuda:0", backend="gloo")
+    rows: set = set()
+    try:
+        dev, rank = basics.device(), basics.rank()
+        group = tp.parallel_group()
+        cfg = tt.train_config()
+        report = {"rank": rank, "backend": dist.get_backend(group)}
+        with record_norm_rows(rows):
+            # (a) pipeline: one step's loss and gradients against the
+            # sequential 12-block model at world 1 (this rank alone).
+            ref = Transformer(cfg, device=dev)
+            ref.load_state_dict(init_params(cfg, SEED))
+            tokens = tp.token_batch(cfg.vocab_size, tt.BATCH,
+                                    cfg.max_seq_len, SEED).to(dev)
+            ref_loss, ref_grads = _one_step_grads(ref, tokens)
+            del ref
+            _free()
+            tr = tp.make_trainer("pipeline", cfg, dev, SEED,
+                                 microbatches=PARALLEL_MICROBATCHES)
+            count = cfg.num_layers // basics.size()
+            loss = tp.loss_fn(tr)
+            loss.backward()
+            tp.sync_grads(tr)
+            rel = {}
+            for name, p in tr.model.named_parameters():
+                glob = name
+                if name.startswith("layers."):
+                    _, i, rest = name.split(".", 2)
+                    glob = f"layers.{int(i) + rank * count}.{rest}"
+                rel[glob] = _rel_l2(p.grad, ref_grads[glob])
+            worst = max(rel, key=rel.get)
+            check = {"loss": float(loss.detach()), "ref_loss": ref_loss,
+                     "loss_diff": abs(float(loss.detach()) - ref_loss),
+                     "finite": all(bool(torch.isfinite(p.grad).all())
+                                   for p in tr.model.parameters()),
+                     "grad_rel_l2_max": rel[worst], "worst_param": worst}
+            del ref_grads
+            report["pipeline"] = {"step": check, **_parallel_leg(tr)}
+            del tr
+            _free()
+
+            # (b) moe: one expert a rank.
+            tr = tp.make_trainer("moe", cfg, dev, SEED)
+            reset_moe_stats()
+            leg = _parallel_leg(tr)
+            leg["moe"] = moe_stats()
+            leg["expert_digest"] = hashlib.sha256(
+                tr.model.layers[0].moe_mlp.gate.detach().cpu().numpy()
+                .tobytes()).hexdigest()
+            report["moe"] = leg
+            del tr
+            _free()
+
+            # (c) zero and (d) fsdp, each against the replicated step.
+            tr = tp.make_trainer("replicated", cfg, dev, SEED)
+            report["replicated"] = _parallel_leg(tr)
+            report["replicated"]["memory_phases"] = _memory_phases(tr)
+            del tr
+            _free()
+            tr = tp.make_trainer("zero", cfg, dev, SEED)
+            report["zero"] = _parallel_leg(
+                tr, lambda: hashlib.sha256(b"".join(
+                    p.detach().cpu().numpy().tobytes()
+                    for p in tr.model.parameters())).hexdigest())
+            del tr
+            _free()
+            tr = tp.make_trainer("fsdp", cfg, dev, SEED)
+            report["fsdp"] = _parallel_leg(tr)
+            # No gathered weight outlives the forward that gathered it.
+            loss = tp.loss_fn(tr)
+            report["fsdp"]["alive_after_forward"] = \
+                tr.fsdp.gathered_alive()
+            loss.backward()
+            report["fsdp"]["memory_phases"] = _memory_phases(tr)
+            del tr
+            _free()
+
+        # (e) tp: the ParallelMLP forward and backward against the dense
+        # MLP on the gathered weights.
+        from horovod_tpu_torch.ops import _build
+
+        mlp = ParallelMLP(cfg.embed_dim, cfg.mlp_dim, cfg.embed_dim,
+                          group=group, seed=SEED, device=dev)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        x = torch.randn(PARALLEL_TP_ROWS, cfg.embed_dim, generator=gen,
+                        device=dev).to(torch.bfloat16).requires_grad_()
+        dout = torch.randn(PARALLEL_TP_ROWS, cfg.embed_dim, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = mlp(x)
+        y.backward(dout)
+        torch.cuda.synchronize()
+        tp_ms = (time.perf_counter() - t0) * 1e3
+        full = [all_gather(mlp.up.kernel.detach(), group, 1),
+                all_gather(mlp.up.bias.detach(), group, 0),
+                all_gather(mlp.down.kernel.detach(), group, 0),
+                mlp.down.bias.detach()]
+        dense = [t.clone().requires_grad_() for t in full]
+        xd = x.detach().clone().requires_grad_()
+        h = torch.nn.functional.gelu(
+            xd @ dense[0].to(xd.dtype) + dense[1].to(xd.dtype),
+            approximate="tanh")
+        yd = h @ dense[2].to(h.dtype) + dense[3].to(h.dtype)
+        yd.backward(dout)
+        k = basics.size()
+        hsl = slice(rank * cfg.mlp_dim // k, (rank + 1) * cfg.mlp_dim // k)
+        want = {"y": yd, "dx": xd.grad, "d_up_kernel": dense[0].grad[:, hsl],
+                "d_up_bias": dense[1].grad[hsl],
+                "d_down_kernel": dense[2].grad[hsl],
+                "d_down_bias": dense[3].grad}
+        got = {"y": y, "dx": x.grad, "d_up_kernel": mlp.up.kernel.grad,
+               "d_up_bias": mlp.up.bias.grad,
+               "d_down_kernel": mlp.down.kernel.grad,
+               "d_down_bias": mlp.down.bias.grad}
+        report["tp"] = {"rows": PARALLEL_TP_ROWS, "ms": tp_ms,
+                        "launches": _launches(),
+                        "rel_l2": {n: _rel_l2(got[n], want[n])
+                                   for n in want}}
+        report["norm_rows"] = sorted([str(dt), n, e] for dt, n, e in rows)
+        print("PARALLEL_REPORT " + json.dumps(report), flush=True)
+    finally:
+        basics.shutdown()
+
+
+def phase_parallel_2proc(norm_rows: set) -> dict:
+    """Two processes on the card under ``python -m horovod_tpu_torch.run
+    -np 2`` (``--parallel-worker``), gloo, the 162M decoder at full width:
+    (a) the GPipe pipeline, 2 stages of 6 blocks, 4 microbatches: one
+    step's loss and gradients against the sequential 12-block model on the
+    same weights and batch (the train bounds); (b) MoE over both ranks: a
+    finite, falling loss, the tokens dropped, distinct experts; (c) ZeRO-1:
+    parameters bitwise equal across ranks after each step, optimizer state
+    a rank half the replicated step's, losses within the train bound of
+    the replicated ``DistributedOptimizer``'s; (d) FSDP: parameter,
+    gradient and state bytes a rank half the replicated step's, peak
+    memory, losses likewise; (e) tensor parallel: ``ParallelMLP`` 768 ->
+    3072 -> 768 over [8192, 768] bf16, forward and backward, against the
+    dense MLP on the gathered weights (rel. L2 within the train bound).
+    Each leg's launches are exact: 6 blocks x 4 microbatches a stage, 12
+    blocks otherwise.  The RMSNorm rows the legs launched join
+    ``norm_rows``."""
+    from horovod_tpu_torch import train_transformer as tt
+
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
+           sys.executable, os.path.abspath(__file__), "--parallel-worker"]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=PARALLEL_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.monotonic() - t0
+    reports = [json.loads(line.split("PARALLEL_REPORT ", 1)[1])
+               for line in proc.stdout.splitlines()
+               if "PARALLEL_REPORT " in line]
+    if proc.returncode != 0 or len(reports) != 2:
+        raise AssertionError(f"parallel_2proc exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    reports.sort(key=lambda r: r["rank"])
+    cfg = tt.train_config()
+    whole = _per_step(cfg)
+    stage = {n: c * PARALLEL_MICROBATCHES * (cfg.num_layers // 2)
+             // cfg.num_layers for n, c in whole.items()}
+    # Each stage's norms: 2 a block a microbatch, and the final norm over
+    # the whole batch on every rank.
+    stage["rmsnorm_fwd"] = stage["rmsnorm_bwd"] = \
+        2 * (cfg.num_layers // 2) * PARALLEL_MICROBATCHES + 1
+    per = {"pipeline": stage, "moe": whole, "replicated": whole,
+           "zero": whole, "fsdp": whole}
+    launches = collections.Counter()
+    for rep in reports:
+        r = rep["rank"]
+        if rep["backend"] != "gloo":
+            raise AssertionError(f"parallel_2proc rank {r}: {rep['backend']}")
+        _within_train_bounds(f"parallel_2proc rank {r} pipeline against "
+                             f"the sequential model",
+                             rep["pipeline"]["step"])
+        for leg, want in per.items():
+            got = rep[leg]["launches"]
+            if got != {n: c * PARALLEL_STEPS for n, c in want.items()}:
+                raise AssertionError(f"parallel_2proc rank {r} {leg}: "
+                                     f"launches {got}, want {want} a step")
+            if not all(np.isfinite(rep[leg]["losses"])):
+                raise AssertionError(f"parallel_2proc rank {r} {leg}: "
+                                     f"{rep[leg]['losses']}")
+            if leg != "replicated":
+                launches.update(got)
+        moe = rep["moe"]
+        if not moe["losses"][-1] < moe["losses"][0]:
+            raise AssertionError(f"parallel_2proc moe losses not falling: "
+                                 f"{moe['losses']}")
+        repl = rep["replicated"]
+        for leg in ("zero", "fsdp"):
+            diff = max(abs(a - b) for a, b in zip(rep[leg]["losses"],
+                                                  repl["losses"]))
+            rep[leg]["loss_diff_vs_replicated"] = diff
+            rep[leg]["state_share"] = rep[leg]["state_bytes"] / \
+                repl["state_bytes"]
+            if diff > TRAIN_LOSS_ATOL or not 0.45 <= \
+                    rep[leg]["state_share"] <= 0.55:
+                raise AssertionError(f"parallel_2proc rank {r} {leg}: "
+                                     f"|dloss| {diff}, state share "
+                                     f"{rep[leg]['state_share']}")
+        fsdp = rep["fsdp"]
+        fsdp["bytes_share"] = sum(fsdp[k] for k in (
+            "param_bytes", "grad_bytes", "state_bytes")) / sum(
+            repl[k] for k in ("param_bytes", "grad_bytes", "state_bytes"))
+        if not 0.45 <= fsdp["bytes_share"] <= 0.55 \
+                or fsdp["alive_after_forward"]:
+            raise AssertionError(
+                f"parallel_2proc rank {r} fsdp: bytes share "
+                f"{fsdp['bytes_share']}, gathered weights alive "
+                f"{fsdp['alive_after_forward']}")
+        worst = max(rep["tp"]["rel_l2"].values())
+        if worst > TRAIN_GRAD_REL_L2:
+            raise AssertionError(f"parallel_2proc rank {r} tp: "
+                                 f"{rep['tp']['rel_l2']}")
+        launches.update(rep["tp"]["launches"])
+        norm_rows.update((getattr(torch, dt.split(".")[-1]), n, e)
+                         for dt, n, e in rep["norm_rows"])
+    zero = [rep["zero"]["param_digests"] for rep in reports]
+    if zero[0] != zero[1]:
+        raise AssertionError("parallel_2proc zero: parameters differ across "
+                             "ranks after a step")
+    if reports[0]["moe"]["expert_digest"] == \
+            reports[1]["moe"]["expert_digest"]:
+        raise AssertionError("parallel_2proc moe: the two experts are one")
+    emit("parallel_2proc", processes=2, layers=cfg.num_layers,
+         batch=tt.BATCH, seq_len=cfg.max_seq_len,
+         microbatches=PARALLEL_MICROBATCHES, steps=PARALLEL_STEPS,
+         wall_s=wall_s, launches_per_step=per, reports=reports)
+    return {"launches": dict(launches)}
+
+
 def _is_bypass(plan) -> bool:
     """The adaptive planner's width-1 bypass: no hook, no collective."""
     return (plan is not None and plan["planner"] == "adaptive"
@@ -3318,8 +3675,9 @@ def main() -> int:
         phase_train_accumulate()
         eager = phase_train_eager(train)
         longctx = phase_longctx()
-    check_norm_rows(norm_rows)
     longctx_2proc = phase_longctx_2proc()
+    parallel_2proc = phase_parallel_2proc(norm_rows)
+    check_norm_rows(norm_rows)
     phase_train_eager_2proc()
     resume = phase_train_resume()
     phase_train_elastic_3proc(resume["deterministic"])
@@ -3331,7 +3689,8 @@ def main() -> int:
             "train": train["launches"], "train_eager": eager["launches"],
             "train_resume": resume["launches"],
             "longctx": longctx["launches"],
-            "longctx_2proc": longctx_2proc["launches"]}
+            "longctx_2proc": longctx_2proc["launches"],
+            "parallel_2proc": parallel_2proc["launches"]}
     launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
     entries = []
@@ -3391,6 +3750,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--longctx-worker"]:
         longctx_worker()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker()
         sys.exit(0)
     if sys.argv[1:2] == ["--elastic-worker"]:
         elastic_worker(int(sys.argv[2]), int(sys.argv[3]),

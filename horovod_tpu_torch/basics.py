@@ -25,6 +25,12 @@ and enters ``dist.new_group`` (torch requires all of them there), a member's
 length, and every collective of the port runs over that group
 (:func:`process_group`).  A process that is not in the list raises.
 
+When the job has two tiers (``LOCAL_WORLD_SIZE`` splits it into more
+than one host of more than one process) and runs every process,
+:func:`init` also forms the local and cross groups of the hierarchical
+allreduce (:func:`hierarchy_groups`, ``parallel/hierarchy.py``), every
+process creating every group in the same order.
+
 On ``cuda`` :func:`init` also forms a gloo group over the same members
 (:func:`host_group`): the eager engine's executor reduces CPU tensors, and
 every tensor on its gather route (``HVD_TPU_EAGER_REDUCE=gather``), over
@@ -76,6 +82,9 @@ class Topology:
     group: object = None
     # A gloo group over the same members (the group itself under gloo).
     host_group: object = None
+    # The two tiers' groups of a job of more than one host and more than one
+    # process a host, (cross, local) (parallel/hierarchy.py); None else.
+    hierarchy: tuple | None = None
 
 
 # How long a collective of the job's groups may take before it fails (a
@@ -171,6 +180,8 @@ def init(*, device=None, init_method: str | None = None,
                 host_group = dist.new_group(
                     list(members), timeout=COLLECTIVE_TIMEOUT,
                     backend="gloo")
+            hierarchy = _tier_groups(rank, size, local_size) \
+                if len(members) == size else None
         except BaseException:
             _remove_store_dir()
             raise
@@ -186,8 +197,29 @@ def init(*, device=None, init_method: str | None = None,
             local_rank=local_rank, local_size=local_size,
             cross_rank=rank // local_size,
             cross_size=-(-size // local_size), device=dev, members=members,
-            group=group, host_group=host_group)
+            group=group, host_group=host_group, hierarchy=hierarchy)
     atexit.register(shutdown)
+
+
+def _tier_groups(rank: int, size: int, local_size: int):
+    """``(cross, local)`` groups of this process when the job has two tiers
+    (hosts of ``local_size`` processes, more than one of each), else
+    None.  Every process creates every group, in the same order."""
+    hosts = size // local_size
+    if local_size < 2 or hosts < 2 or size % local_size:
+        return None
+    local = cross = None
+    for h in range(hosts):
+        g = dist.new_group([h * local_size + i for i in range(local_size)],
+                           timeout=COLLECTIVE_TIMEOUT)
+        if rank // local_size == h:
+            local = g
+    for i in range(local_size):
+        g = dist.new_group([h * local_size + i for h in range(hosts)],
+                           timeout=COLLECTIVE_TIMEOUT)
+        if rank % local_size == i:
+            cross = g
+    return cross, local
 
 
 def _remove_store_dir() -> None:
@@ -287,6 +319,13 @@ def host_group():
     """The gloo group of the job's members: :func:`process_group` under
     gloo, a group of its own on ``cuda``."""
     return _topo().host_group
+
+
+def hierarchy_groups():
+    """``(cross, local)``: the groups of the two tiers when the job has
+    them (more than one host and more than one process a host), else
+    ``None``."""
+    return _topo().hierarchy
 
 
 def launch_rank(r: int) -> int:

@@ -345,6 +345,11 @@ class NativeEngine:
         self._lib = lib()
         self._store: dict[str, _Staged] = {}
         self._results: dict[int, _Staged] = {}
+        # The ordinal of the last batch that carried each name, counted
+        # as the executor finishes batches: the coordinator orders batches
+        # alike on every rank, so two names' ordinals compare alike too.
+        self._applied: dict[str, int] = {}
+        self._batches_applied = 0
         self._handle_names: dict[int, tuple[str, _Staged]] = {}
         self._store_lock = threading.Lock()
         self._shutdown = threading.Event()
@@ -501,6 +506,13 @@ class NativeEngine:
 
     def poll(self, handle: int) -> bool:
         return bool(self._lib.hvd_poll(self._ptr, handle))
+
+    def applied_order(self, name: str) -> int:
+        """The ordinal of the last executed batch that carried ``name`` in
+        this engine (0 before any): batches run in the coordinator's
+        order, the same on every rank, so whether ``a`` ran after ``b``
+        reads alike everywhere once both have run."""
+        return self._applied.get(name, 0)
 
     def cache_stats(self) -> dict[str, int]:
         """This rank's response-cache counters (docs/response_cache.md):
@@ -902,6 +914,9 @@ class NativeEngine:
             batch = ExecBatch(buf.raw[:n])
             try:
                 self._executor(self, batch)
+                self._batches_applied += 1
+                for name in batch.names:
+                    self._applied[name] = self._batches_applied
                 self._lib.hvd_batch_done(self._ptr, batch.id, STATUS_OK, None)
             except Exception as e:  # noqa: BLE001 - report, don't kill thread
                 self._lib.hvd_batch_done(self._ptr, batch.id, STATUS_UNKNOWN,

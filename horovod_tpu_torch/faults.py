@@ -53,6 +53,12 @@ Injectors (all opt-in; absent env == no faults):
   time (default 5000 ms) between the fleet's drain rendezvous and its
   exit, the widest window for a join to land in a finished fleet
   (``serving/__main__.py``).
+* ``HVD_TPU_FAULT_POLL_HOLD_RANK`` / ``HVD_TPU_FAULT_POLL_HOLD_MS`` — the
+  port's own: a serving replica of that rank, the first time it reads
+  whether the fleet's drain completed after announcing its own, first
+  holds for the given time (default 200 ms) while its engine's executor
+  runs on: a serving thread that wakes late, and so sees the drain
+  complete behind a tick that its peers looked past before it completed.
 * ``HVD_TPU_FAULT_ON_ATTEMPT`` (default 0) — faults fire only when the
   launcher-exported ``HVD_TPU_RESTART_ATTEMPT`` matches, so an injected
   crash consumes exactly one restart and the relaunched job runs clean.
@@ -109,6 +115,8 @@ class FaultPlan:
     bulk_truncate: tuple[int, int] | None = None
     drain_hold_rank: int | None = None
     drain_hold_ms: float = 5000.0
+    poll_hold_rank: int | None = None
+    poll_hold_ms: float = 200.0
     on_attempt: int = 0
 
     def any_active(self) -> bool:
@@ -119,7 +127,7 @@ class FaultPlan:
             self.wire_drop, self.wire_corrupt,
             self.wire_partition, self.wire_halfclose,
             self.bulk_drop, self.bulk_corrupt, self.bulk_truncate,
-            self.drain_hold_rank))
+            self.drain_hold_rank, self.poll_hold_rank))
 
 
 def _int_env(name: str) -> int | None:
@@ -183,12 +191,16 @@ def _plan_from_env() -> FaultPlan:
         drain_hold_rank=_int_env("HVD_TPU_FAULT_DRAIN_HOLD_RANK"),
         drain_hold_ms=float(os.environ.get("HVD_TPU_FAULT_DRAIN_HOLD_MS",
                                            "5000")),
+        poll_hold_rank=_int_env("HVD_TPU_FAULT_POLL_HOLD_RANK"),
+        poll_hold_ms=float(os.environ.get("HVD_TPU_FAULT_POLL_HOLD_MS",
+                                          "200")),
         on_attempt=_int_env("HVD_TPU_FAULT_ON_ATTEMPT") or 0,
     )
 
 
 _plan: FaultPlan | None = None
 _delay_fired = False
+_poll_held = False
 _bulk_sends = 0
 
 
@@ -370,6 +382,19 @@ def on_checkpoint_committed(path: str, step_num: int,
         f"horovod_tpu_torch.faults: corrupted checkpoint payload {victim} "
         f"(step {step_num}, injected)\n")
     sys.stderr.flush()
+
+
+def on_drained_poll(rank: int | None = None) -> None:
+    """Serving-fleet hook, called before a replica that announced its
+    drain reads whether it completed: the first time, hold the named rank
+    there for ``poll_hold_ms`` (``HVD_TPU_FAULT_POLL_HOLD_*``)."""
+    global _poll_held
+    p = plan()
+    if p.poll_hold_rank is None or _attempt() != p.on_attempt \
+            or _poll_held or _rank(rank) != p.poll_hold_rank:
+        return
+    _poll_held = True
+    time.sleep(p.poll_hold_ms / 1000.0)
 
 
 def on_drain(rank: int | None = None) -> None:

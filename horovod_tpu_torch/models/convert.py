@@ -11,7 +11,12 @@ differ in three places:
 * ``Dense`` kernels are ``[in, out]``, the transpose of an ``nn.Linear``
   weight;
 * the embedding table (``[V, E]``) and the norm ``scale`` vectors carry
-  over as they are.
+  over as they are, and so do a switch-MoE block's ``moe_mlp`` (its
+  ``router`` and its expert's ``gate``, ``up`` and ``down``, float32 and
+  ``[in, out]`` in both packages).
+
+A pipeline stage holds a run of the blocks: :func:`stage_state_dict`
+renumbers them from 0.
 
 :func:`init_params` makes seeded random weights in the flax layout with
 numpy and converts them the same way, so a model built on the card from a
@@ -58,21 +63,32 @@ def params_from_flax(tree, cfg: TransformerConfig) -> dict:
         for name in ("q", "k", "v"):
             sd[f"{pre}attn.{name}.weight"] = kernel(attn[name], (e, hd))
         sd[f"{pre}attn.o.weight"] = kernel(attn["o"], (hd, e))
-        for name in ("gate", "up", "down"):
-            sd[f"{pre}mlp.{name}.weight"] = kernel(lp["mlp"][name])
+        if "moe_mlp" in lp:
+            for name in ("router", "gate", "up", "down"):
+                sd[f"{pre}moe_mlp.{name}"] = torch.from_numpy(
+                    np.ascontiguousarray(np.asarray(
+                        lp["moe_mlp"][name]).astype(np.float32)))
+        else:
+            for name in ("gate", "up", "down"):
+                sd[f"{pre}mlp.{name}.weight"] = kernel(lp["mlp"][name])
         sd[f"{pre}attn_norm.scale"] = t(lp["attn_norm"]["scale"])
         sd[f"{pre}mlp_norm.scale"] = t(lp["mlp_norm"]["scale"])
     return sd
 
 
-def flax_tree(cfg: TransformerConfig, seed: int) -> dict:
+def flax_tree(cfg: TransformerConfig, seed: int, n_experts: int = 0,
+              expert: int = 0) -> dict:
     """Seeded random weights in the flax layout (numpy float32): every
-    kernel ``N(0, 1/fan_in)``, the embedding ``N(0, 1)``, norm scales 1."""
+    kernel ``N(0, 1/fan_in)``, the embedding ``N(0, 1)``, norm scales 1.
+    With ``n_experts`` each block has a ``moe_mlp`` in place of its
+    ``mlp``: the router drawn alike for every expert, the expert's weights
+    from a generator of its own (``expert``)."""
     rng = np.random.default_rng(seed)
+    erng = np.random.default_rng([seed, expert + 1])
     e, h, d, f = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.mlp_dim
 
-    def dense(*shape, fan_in):
-        return (rng.standard_normal(shape, np.float32)
+    def dense(*shape, fan_in, gen=rng):
+        return (gen.standard_normal(shape, np.float32)
                 / np.float32(np.sqrt(fan_in)))
 
     ones = lambda: {"scale": np.ones(e, np.float32)}  # noqa: E731
@@ -86,17 +102,47 @@ def flax_tree(cfg: TransformerConfig, seed: int) -> dict:
             "attn": {"q": {"kernel": dense(e, h, d, fan_in=e)},
                      "k": {"kernel": dense(e, h, d, fan_in=e)},
                      "v": {"kernel": dense(e, h, d, fan_in=e)},
-                     "o": {"kernel": dense(h, d, e, fan_in=h * d)}},
-            "mlp": {"gate": {"kernel": dense(e, f, fan_in=e)},
-                    "up": {"kernel": dense(e, f, fan_in=e)},
-                    "down": {"kernel": dense(f, e, fan_in=f)}}}
+                     "o": {"kernel": dense(h, d, e, fan_in=h * d)}}}
+        if n_experts:
+            p[f"layer_{i}"]["moe_mlp"] = {
+                "router": dense(e, n_experts, fan_in=e),
+                "gate": dense(e, f, fan_in=e, gen=erng),
+                "up": dense(e, f, fan_in=e, gen=erng),
+                "down": dense(f, e, fan_in=f, gen=erng)}
+        else:
+            p[f"layer_{i}"]["mlp"] = {
+                "gate": {"kernel": dense(e, f, fan_in=e)},
+                "up": {"kernel": dense(e, f, fan_in=e)},
+                "down": {"kernel": dense(f, e, fan_in=f)}}
     return {"params": p}
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     """Seeded random ``state_dict`` for :class:`Transformer` (CPU
-    tensors; ``load_state_dict`` copies them to the model's device)."""
-    return params_from_flax(flax_tree(cfg, seed), cfg)
+    tensors; ``load_state_dict`` copies them to the model's device).
+    Under ``cfg.moe_axis`` the experts are this rank's of that group."""
+    n_experts = expert = 0
+    if cfg.moe_axis is not None:
+        import torch.distributed as dist
+
+        n_experts = dist.get_world_size(cfg.moe_axis)
+        expert = dist.get_rank(cfg.moe_axis)
+    return params_from_flax(flax_tree(cfg, seed, n_experts, expert), cfg)
+
+
+def stage_state_dict(state_dict: dict, first: int, count: int) -> dict:
+    """A pipeline stage's share of a whole model's ``state_dict``: blocks
+    ``first .. first + count - 1`` renumbered from 0, and every tensor
+    outside the blocks (embedding, final norm, head)."""
+    out = {}
+    for name, t in state_dict.items():
+        if not name.startswith("layers."):
+            out[name] = t
+            continue
+        _, i, rest = name.split(".", 2)
+        if first <= int(i) < first + count:
+            out[f"layers.{int(i) - first}.{rest}"] = t
+    return out
 
 
 # -- ResNet and the MNIST models ---------------------------------------------

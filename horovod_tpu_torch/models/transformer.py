@@ -34,8 +34,12 @@ zigzag flash path over the group, each rank's positions come from the
 plan's layout, and the plan's ``remat`` replaces ``cfg.remat``; an explicit
 ``attention_fn`` or ``positions=`` wins.  ``forward`` also takes
 ``position_offset=`` (a contiguous shard's first global position) and
-``positions=`` (``[S]`` or ``[B, S]``).  Mixture-of-experts is not ported
-yet.
+``positions=`` (``[S]`` or ``[B, S]``).
+
+Mixture-of-experts, as in the JAX package: with ``moe_axis`` (a process
+group; ``None`` is off) each block's dense MLP is a switch-MoE layer
+(``models/moe.py``, the module named ``moe_mlp``), one expert a rank of
+the group, its capacity from ``moe_capacity_factor``.
 """
 
 from __future__ import annotations
@@ -77,6 +81,10 @@ class TransformerConfig:
     # that wires attention, positions and remat from it.
     context_axis: Any = None
     context_plan: Any = None
+    # The expert-parallel process group (None: the dense MLP) and each
+    # expert's capacity factor.
+    moe_axis: Any = None
+    moe_capacity_factor: float = 2.0
 
 
 def config_162m(**overrides) -> TransformerConfig:
@@ -253,7 +261,14 @@ class Block(nn.Module):
             use_fused=cfg.fused_norm, device=device)
         self.attn_norm, self.mlp_norm = norm(), norm()
         self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe_axis is not None:
+            from horovod_tpu_torch.models.moe import MoEMLP
+
+            self.moe_mlp = MoEMLP(cfg.embed_dim, cfg.mlp_dim, cfg.moe_axis,
+                                  cfg.moe_capacity_factor, cfg.dtype,
+                                  device=device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, cache=None, return_kv=False):
         kv = None
@@ -264,7 +279,9 @@ class Block(nn.Module):
         else:
             attn_out = self.attn(y, positions)
         x = x + attn_out
-        x = x + self.mlp(self.mlp_norm(x))
+        # The residual carries a dropped (over-capacity) token unchanged.
+        mlp = self.moe_mlp if self.cfg.moe_axis is not None else self.mlp
+        x = x + mlp(self.mlp_norm(x))
         if cache is not None or return_kv:
             return x, kv
         return x

@@ -23,8 +23,12 @@ the local quantization error comes back as a residual for error feedback.
 :func:`alltoall` (even or ragged splits), :func:`allreduce_sparse` /
 :func:`sparse_to_dense` and :func:`allgather_object` complete the surface.
 Every collective runs over the job's group (``basics.process_group()``,
-a subset under ``init(ranks=...)``).  The JAX package's in-mesh ``psum``
-inside ``shard_map`` has no counterpart here.
+a subset under ``init(ranks=...)``); on a job of two tiers the fused
+allreduce runs tier by tier instead (``parallel/hierarchy.py``: a
+reduce-scatter within the host, an allreduce across hosts, an all-gather
+within the host), as the JAX package's does on a ``(dcn, ici)`` mesh.
+The JAX package's in-mesh ``psum`` inside ``shard_map`` has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -45,9 +49,14 @@ from horovod_tpu_torch.ops.compression import Compression
 
 
 def _process_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum of ``x`` over the processes (``x`` itself with one)."""
+    """Sum of ``x`` over the processes (``x`` itself with one); tier by
+    tier on a job of two (``parallel/hierarchy.py``)."""
     if basics.size() == 1:
         return x
+    if basics.hierarchy_groups() is not None:
+        from horovod_tpu_torch.parallel.hierarchy import data_allreduce
+
+        return data_allreduce(x.reshape(-1)).view_as(x)
     out = x.clone()
     dist.all_reduce(out, group=basics.process_group())
     return out
@@ -146,9 +155,15 @@ def grouped_allreduce_async(tensors: Sequence, average: bool = True,
     :func:`synchronize` waits and gives the results."""
     comp = [compression.compress(t) for t in tensors]
     packed = fusion.pack([c for c, _ in comp], threshold_bytes)
-    works = ([dist.all_reduce(flat, async_op=True,
-                              group=basics.process_group())
-              for _, flat in packed] if basics.size() > 1 else [])
+    works = []
+    if basics.hierarchy_groups() is not None:
+        # Two tiers: each buffer reduced tier by tier, now.
+        for _, flat in packed:
+            flat.copy_(_process_reduce(flat))
+    elif basics.size() > 1:
+        works = [dist.all_reduce(flat, async_op=True,
+                                 group=basics.process_group())
+                 for _, flat in packed]
     return AllreduceHandle(packed, works, [ctx for _, ctx in comp], average,
                            compression)
 

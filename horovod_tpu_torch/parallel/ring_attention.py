@@ -45,6 +45,7 @@ import torch.distributed as dist
 from horovod_tpu_torch.ops.flash_attention import (NEG_INF,
                                                    flash_attention_backward,
                                                    flash_attention_with_lse)
+from horovod_tpu_torch.parallel.common import global_rank, on_wire, staged
 
 _stats = {"exchanges": 0, "bytes": 0, "host_ms": 0.0}
 
@@ -65,11 +66,6 @@ def _size_rank(group):
     return dist.get_world_size(group), dist.get_rank(group)
 
 
-def _global(group, r: int) -> int:
-    return r if group is None or group is dist.group.WORLD else \
-        dist.get_global_rank(group, r)
-
-
 class _Rotation:
     """One ring exchange in flight: ``tensors`` posted to the next rank,
     as many received from the previous one (``shift=-1``: the other way
@@ -79,14 +75,11 @@ class _Rotation:
     def __init__(self, tensors, group, shift: int = 1):
         t0 = time.perf_counter()
         n, r = _size_rank(group)
-        dst, src = _global(group, (r + shift) % n), \
-            _global(group, (r - shift) % n)
+        dst, src = global_rank(group, (r + shift) % n), \
+            global_rank(group, (r - shift) % n)
         self._device = tensors[0].device
-        self._staged = self._device.type != "cpu" and \
-            dist.get_backend(group) == "gloo"
-        self._send = [t.detach().contiguous() for t in tensors]
-        if self._staged:
-            self._send = [t.cpu() for t in self._send]
+        self._staged = staged(tensors[0], group)
+        self._send = [on_wire(t, group) for t in tensors]
         self._recv = [torch.empty_like(t) for t in self._send]
         ops = [op for s, rv in zip(self._send, self._recv) for op in (
             dist.P2POp(dist.isend, s, dst, group),

@@ -7,9 +7,9 @@ attention over the whole sequence for its group of heads; a second
 all-to-all restores the sequence shard.  The all-to-alls are
 ``dist.all_to_all_single`` over the group (``None``: the world), and
 differentiable: each one's gradient is the other.  On gloo, which moves no
-CUDA tensor, a CUDA tensor is staged through host memory, as the ring's
-exchange is (``parallel/ring_attention.py``); the route follows the
-group's backend.  Heads must divide by the group's size.
+CUDA tensor, a CUDA tensor is staged through host memory
+(``parallel/common.py``); the route follows the group's backend.  Heads
+must divide by the group's size.
 """
 
 from __future__ import annotations
@@ -21,16 +21,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.models.transformer import dense_causal_attention
 from horovod_tpu_torch.ops.flash_attention import make_flash_attention
-
-
-def _all_to_all(x, group):
-    """``x`` [n, ...] → [n, ...]: row ``i`` goes to rank ``i``, and row
-    ``i`` of the result came from rank ``i``."""
-    staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
-    send = x.contiguous().cpu() if staged else x.contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return recv.to(x.device) if staged else recv
+from horovod_tpu_torch.parallel.common import all_to_all
 
 
 def _seq_to_heads(x, group):
@@ -38,7 +29,7 @@ def _seq_to_heads(x, group):
     n = dist.get_world_size(group)
     b, s, h, d = x.shape
     rows = x.reshape(b, s, n, h // n, d).permute(2, 0, 1, 3, 4)
-    out = _all_to_all(rows, group)                  # [n, B, S/n, H/n, D]
+    out = all_to_all(rows, group)                   # [n, B, S/n, H/n, D]
     return out.permute(1, 0, 2, 3, 4).reshape(b, n * s, h // n, d)
 
 
@@ -47,7 +38,7 @@ def _heads_to_seq(x, group):
     n = dist.get_world_size(group)
     b, s, h, d = x.shape
     rows = x.reshape(b, n, s // n, h, d).permute(1, 0, 2, 3, 4)
-    out = _all_to_all(rows, group)                  # [n, B, S/n, H/n, D]
+    out = all_to_all(rows, group)                   # [n, B, S/n, H/n, D]
     return out.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * h, d)
 
 

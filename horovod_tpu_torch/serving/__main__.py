@@ -202,9 +202,12 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
     but keeps ticking (the fleet collective must stay in lockstep) until
     EVERY replica has drained.  The drain rendezvous is a one-shot
     ``serving.drained`` collective announced when this rank empties and
-    *polled* while ticking continues: the coordinator dispatches it only
-    once all replicas announced, and dispatch order is identical on every
-    rank, so poll() flips true after the same tick fleet-wide.
+    watched while ticking continues: the coordinator dispatches it only
+    once all replicas announced, and every replica leaves after the first
+    tick ordered after it (``ServingEngine.at_leave_point``), which the
+    coordinator orders alike on every rank: a replica that sees the
+    drain complete behind an earlier tick ticks once more, with its
+    peers, rather than leave them waiting on a tick that never completes.
     Membership changes reconfigure in place; on a grow, the joiner's ring
     neighbour donates the weights over the data plane (``info["shipped"]``).
     A drain that a grow overtakes is void (see :func:`_leave`): the fleet,
@@ -248,11 +251,11 @@ def _serve_fleet(serving: ServingEngine, w: loadgen.Workload, backend,
                     print(f"AUTOSCALE {verdict} "
                           f"replicas={serving.collective.size}", flush=True)
             if mine_done and drained_h is None:
-                drained_h = serving.collective.enqueue(
-                    "serving.drained", np.zeros(1, np.float32),
-                    OP_ALLREDUCE)
+                drained_h = serving.announce_drained()
+            if drained_h is not None:
+                faults.on_drained_poll(serving.collective.rank)
             if drained_h is not None and \
-                    serving.collective.poll(drained_h):
+                    serving.at_leave_point(drained_h):
                 serving.collective.synchronize(drained_h)
                 faults.on_drain(serving.collective.rank)
                 _leave(serving.collective)

@@ -428,6 +428,7 @@ class ServingEngine:
     host time."""
 
     TICK_NAME = "serving.tick"
+    DRAINED_NAME = "serving.drained"
 
     def __init__(self, backend, config: ServingConfig | None = None,
                  collective=None, clock: Callable[[], float] = time.monotonic,
@@ -698,6 +699,28 @@ class ServingEngine:
                 "SERVING_EVICT", f"req={req.rid} slot={slot} "
                 f"reason={req.finish_reason} new={len(req.tokens)}")
         done.append(req)
+
+    def announce_drained(self) -> int:
+        """This replica is done: enqueue the one-shot ``serving.drained``
+        collective, which the coordinator dispatches once every replica
+        announced it; returns its handle for :meth:`at_leave_point`."""
+        from horovod_tpu_torch.core.engine import OP_ALLREDUCE
+
+        return self.collective.enqueue(self.DRAINED_NAME,
+                                       np.zeros(1, np.float32), OP_ALLREDUCE)
+
+    def at_leave_point(self, drained_handle: int) -> bool:
+        """Whether the fleet may leave after the tick just completed: the
+        drained collective has completed and the tick ran after it (or in
+        its batch).  The tick ordered first after the drain is the same
+        on every replica, so every replica leaves after the same tick; a
+        replica that sees the drain complete behind its tick ticks once
+        more, with everyone else, instead of leaving a peer waiting on a
+        tick that would never complete."""
+        eng = self.collective
+        return eng.poll(drained_handle) and \
+            eng.applied_order(self.tick_name) >= \
+            eng.applied_order(self.DRAINED_NAME)
 
     def _tick_collective(self) -> None:
         if self.collective is None:

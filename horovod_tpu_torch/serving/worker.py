@@ -35,9 +35,10 @@ Two drain rules hold, as in the JAX package, where each was once a bug:
   on a locally drained queue.  On QUIT it keeps ticking with
   ``done_flag`` raised and announces a one-shot polled
   ``serving.drained`` collective: the coordinator dispatches it only once
-  every replica has announced, so the whole fleet breaks out after the
-  same tick.  A replica that stopped early would stall its peers'
-  ``serving.tick``.
+  every replica has announced, and the whole fleet breaks out after the
+  same tick, the first one ordered after it
+  (``ServingEngine.at_leave_point``).  A replica that stopped early would
+  stall its peers' ``serving.tick``.
 
 Founding mode: argv = ``rank n coordinator_port``; join mode: argv =
 ``--join coordinator_port``.  On a grow reconfiguration the survivor
@@ -61,8 +62,7 @@ import numpy as np
 
 from horovod_tpu_torch import elastic, replication
 from horovod_tpu_torch.core import engine as em
-from horovod_tpu_torch.core.engine import (OP_ALLREDUCE,
-                                           MembershipChanged, NativeEngine)
+from horovod_tpu_torch.core.engine import MembershipChanged, NativeEngine
 from horovod_tpu_torch.core.executors import local_executor
 from horovod_tpu_torch.serving import autoscale
 from horovod_tpu_torch.serving.engine import (ServingConfig,
@@ -206,10 +206,8 @@ def main(argv=None) -> int:
             # comment); the fleet leaves together via serving.drained.
             serving.step()
             if mine_done and drained_h is None:
-                drained_h = serving.collective.enqueue(
-                    "serving.drained", np.zeros(1, np.float32),
-                    OP_ALLREDUCE)
-            if drained_h is not None and serving.collective.poll(drained_h):
+                drained_h = serving.announce_drained()
+            if drained_h is not None and serving.at_leave_point(drained_h):
                 serving.collective.synchronize(drained_h)
                 break
             if eng.rank == 0 and not quitting:

@@ -23,8 +23,10 @@ linear-scaling recipe.
 from __future__ import annotations
 
 import pickle
+import signal as _signal
 import sys
 import warnings
+import weakref
 
 import torch
 from torch import nn
@@ -41,7 +43,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          threshold_bytes: int | None = None,
                          overlap_buckets: int | None = None,
                          planner=None, average: bool = True,
-                         sparse_as_dense: bool = False):
+                         sparse_as_dense: bool = False,
+                         sharded_state: bool = False):
     """Wrap ``optimizer`` so ``step()`` applies gradients averaged over
     every process (summed with ``average=False``).
 
@@ -88,7 +91,28 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``sparse_as_dense=True`` densifies it first instead, as the
     reference's ``horovod/torch`` optimizer does.  Which gradients are
     sparse is read at the first ``step()``.
+
+    ``sharded_state=True`` switches to ZeRO-1 (``parallel/zero.py``): the
+    averaging becomes a reduce-scatter of the flat gradient vector, the
+    optimizer's state lives 1/K a process, and the updated parameters are
+    all-gathered back.  Elementwise optimizers of one parameter group
+    only; compression, ``threshold_bytes``, ``overlap_buckets`` (other
+    than 0) and ``planner`` do not apply to that path and raise.
     """
+    if sharded_state:
+        if (compression is not Compression.none
+                or threshold_bytes is not None
+                or planner is not None
+                or overlap_buckets not in (None, 0)):
+            raise ValueError(
+                "sharded_state=True uses a reduce-scatter of the flat "
+                "gradient vector; compression/threshold_bytes/"
+                "overlap_buckets/planner do not apply to that path — drop "
+                "them or use the replicated optimizer.")
+        from horovod_tpu_torch.parallel.zero import zero_optimizer
+
+        return zero_optimizer(optimizer, basics.process_group(),
+                              average=average)
     return _DistributedOptimizer(optimizer, named_parameters, compression,
                                  backward_passes_per_step, threshold_bytes,
                                  overlap_buckets, planner, average,
@@ -177,7 +201,15 @@ class _DistributedOptimizer:
                            self._hook(i)) for i in self._dense]
 
     def _hook(self, i: int):
+        # The parameter holds its hook where the collector cannot see it: a
+        # strong reference to the optimizer would keep both alive for ever
+        # once the optimizer is dropped.
+        ref = weakref.ref(self)
+
         def hook(p):
+            self = ref()
+            if self is None:
+                return
             self._fires[i] += 1
             if self._fires[i] < self._bpps:
                 return
@@ -586,6 +618,11 @@ def elastic_loop(step_fn, state, *, num_steps: int, manager=None,
         if step >= 0:  # step -1 == preempted before any step completed
             manager.save(step, state, metadata=_metadata(step))
         manager.drain()
+        # The drain is done and the process exits clean: a repeated SIGTERM
+        # (the launcher forwards its own twice) landing after the
+        # interpreter has put the default handler back would kill the exit
+        # with 143.
+        _signal.signal(_signal.SIGTERM, _signal.SIG_IGN)
         sys.exit(0)
 
     step = start_step

@@ -682,6 +682,44 @@ def test_fleet_cli_join_landing_in_the_drain_reforms_the_fleet():
     assert len({tuple(r["probe"]) for r in reps}) == 1
 
 
+def test_fleet_cli_drain_seen_late_leaves_after_the_same_tick():
+    # Replica 1 (whose last request, 64 tokens at 0.98 s, makes it the last
+    # to drain) reads the drain late (HVD_TPU_FAULT_POLL_HOLD_*): it sleeps
+    # after announcing its own, while its executor runs on, and so finds
+    # serving.drained complete behind the tick that replica 0 had already
+    # looked past and ticked on from.  Both must still leave after the same
+    # tick: each reports, having completed as many ticks as the other,
+    # with no tick cut.
+    import json
+
+    port = soak.free_port()
+    env = {**os.environ, **soak.FLEET_ENV,
+           "HVD_TPU_COORDINATOR_PORT": str(port),
+           "HVD_TPU_SERVE_BACKEND": "stub", "HVD_TPU_SERVE_QPS": "10",
+           "HVD_TPU_SERVE_DURATION_S": "1",
+           "HVD_TPU_FAULT_POLL_HOLD_RANK": "1",
+           "HVD_TPU_FAULT_POLL_HOLD_MS": "300"}
+    argv = [sys.executable, "-m", "horovod_tpu_torch.serving"]
+    fleet = [soak.Replica(argv, {**env, "JAX_PROCESS_ID": str(r),
+                                 "JAX_NUM_PROCESSES": "2"})
+             for r in range(2)]
+    try:
+        reps = []
+        for r in fleet:
+            line = r.wait_line("SERVE_REPORT ", 60)
+            assert line is not None, "\n".join(r.lines)
+            reps.append(json.loads(line.split(" ", 1)[1]))
+            assert r.proc.wait(timeout=30) == 0
+    finally:
+        for r in fleet:
+            if r.proc.poll() is None:
+                r.proc.kill()
+    for rep in reps:
+        assert rep["completed"] == rep["offered"] and not rep["timed_out"]
+        assert rep["ticks"] == rep["steps"] > 0, rep
+    assert reps[0]["ticks"] == reps[1]["ticks"], reps
+
+
 def test_soak_two_replicas_join_loses_nothing():
     r = soak.run_fleet(n=2, join=True, kill=False, timeout_s=60)
     assert r["lost"] == 0 and r["completed"] == r["accepted"] > 0, r
