@@ -230,6 +230,32 @@ line each:
                  finite loss falling on the fixed batch, and
                  ``overlap_plan()``, which must be the adaptive planner's
                  width-1 bypass;
+   cnn         — the reference's benchmark table through
+                 ``train_synthetic``'s step at full width and depth, 32
+                 images a card, NCCL world 1, 3 warm-up and 8 timed steps
+                 each: VGG-16 at 224² (dropout 0) and Inception V3 at 299²
+                 with its aux head (loss = head + 0.4·aux).  Parameters,
+                 img/s, step ms, peak memory, the breakdown with BatchNorm's
+                 and the convolutions' shares of the device time, a finite
+                 loss falling on the fixed batch, the width-1 bypass, and
+                 the port kernels' launches (0 each);
+   sync_bn_2proc — two processes on the card under the launcher
+                 (``--sync-bn-worker``), gloo: ResNet-50 with cross-replica
+                 BatchNorm, 16 images a rank of one seeded batch, 3 steps,
+                 and the same with local BatchNorm.  Checks: the running
+                 statistics bitwise equal across the ranks after every
+                 step when synced, unequal when local; step 1's mean loss
+                 and averaged gradients against one process on the 32
+                 images with local BatchNorm (|Δloss| ≤ 0.02, gradient
+                 rel. L2 over all parameters ≤ 0.05);
+   profile     — ``horovod_tpu_torch.profiling.trace`` around two 162M
+                 training steps, each in ``annotate("train_step")``: the
+                 Chrome trace holds both spans and kernels of all five
+                 port kernels, exact launches; its size;
+   control_plane — ``star_bench`` and ``fleet_sim`` built from
+                 ``horovod_tpu_torch/core/src/tools`` (both at once) and
+                 run: ``fleet_sim --p 64 --fanout 8 --ticks 12`` and
+                 ``star_bench`` at P = 8 (host programs);
 10. kernels    — ``{"kernels": [...]}``, one entry per kernel of the path,
                  with the form it runs in for bf16 inputs (the three flash
                  kernels on the tensor cores, the two RMSNorm kernels on
@@ -237,8 +263,9 @@ line each:
                  the sum over the serve, serve_paged (a-d), router,
                  serve_fleet (summed over its replicas' reports), train,
                  train_eager, train_resume (summed over its processes),
-                 longctx, longctx_2proc and parallel_2proc (summed over
-                 its ranks and legs) runs,
+                 longctx, longctx_2proc, parallel_2proc (summed over
+                 its ranks and legs), cnn and sync_bn_2proc (0 each) and
+                 profile runs,
                  each counted from 0 around its own run
                  (``launches_by_run``).
 
@@ -373,6 +400,19 @@ RMS_BWD_CASES = ((1000, 768), (2048, 768), (4096, 768), (8192, 768),
 RMS_REG_ROW_BYTES = 2048
 RMS_MAIN = 8192                         # one training step's tokens
 RESNET_WARMUP, RESNET_STEPS = 3, 8
+# cnn: VGG-16 (224²) and Inception V3 (299², the aux head, loss head +
+# 0.4·aux) at full width and depth through train_synthetic's step, batch
+# 32 a card, 3 warm-up and 8 timed steps each.  sync_bn_2proc: ResNet-50
+# with cross-replica BatchNorm, two processes on the card over gloo, 16
+# images a rank, 3 steps a leg.  profile: the 162M step traced twice.
+# control_plane: the JAX core Makefile's fleet-soak settings and a star
+# benchmark at P = 8.
+CNN_BATCH, CNN_WARMUP, CNN_STEPS = 32, 3, 8
+CNN_MODELS = (("VGG16", {}), ("InceptionV3", {"aux_logits": True}))
+SYNC_BN_BATCH, SYNC_BN_STEPS, SYNC_BN_TIMEOUT_S = 16, 3, 300.0
+PROFILE_STEPS = 2
+FLEET_SIM = {"p": 64, "ticks": 12, "fanout": 8}
+STAR_BENCH_P, STAR_BENCH_TICKS = 8, 200
 # bf16 outputs: |kernel - plain| <= ATOL + RTOL * |plain|.  Both compute in
 # f32 and round once to bf16 (ulp 2**-8 relative), so they differ by at
 # most about one ulp; ATOL covers f32 summation order near zero.  The
@@ -518,11 +558,19 @@ def phase_build():
         k.load()
         return time.monotonic() - t
 
-    # One thread per kernel, so every nvcc runs at once.
+    # One thread per kernel, so every nvcc runs at once; the native tools
+    # of the control_plane phase build beside them (g++, host programs).
+    from horovod_tpu_torch.core import _build as core_build
+
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+    with ThreadPoolExecutor(len(_build.KERNELS)
+                            + len(core_build.TOOLS)) as pool:
+        tools = [pool.submit(core_build.build_tool, name)
+                 for name in core_build.TOOLS]
         per = dict(zip(_build.KERNELS,
                        pool.map(load, _build.KERNELS.values())))
+        for f in tools:
+            f.result()
     ptxas = {name: [ln.strip() for ln in k.build_log.splitlines()
                     if any(w in ln for w in ("entry function", "registers",
                                              "spill"))]
@@ -3642,6 +3690,313 @@ def phase_resnet() -> None:
         basics.shutdown()
 
 
+def _no_port_kernel(phase: str, launches: dict) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: a port kernel launched on a path "
+                             f"that has none: {launches}")
+
+
+def phase_cnn() -> dict:
+    """VGG-16 and Inception V3 (the aux head on: loss = head + 0.4·aux)
+    through ``train_synthetic``'s step at full width and depth on the card,
+    NCCL world 1, ``CNN_BATCH`` images at each model's canonical size, 3
+    warm-up and 8 timed steps: parameters, img/s, step ms, peak memory, a
+    finite loss falling on the fixed batch, the width-1 bypass,
+    ``utils/trace.measure``'s breakdown with BatchNorm's share of the
+    device time, and the port kernels' launches, 0 each (convolutions and
+    BatchNorms are cuDNN's and PyTorch's)."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_synthetic as ts
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.schedule_plan import overlap_plan
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()   # NCCL, world 1
+    launches = collections.Counter()
+    try:
+        torch.backends.cudnn.benchmark = True
+        dev = basics.device()
+        for name, kw in CNN_MODELS:
+            size = ts.image_size(name)
+            t0 = time.monotonic()
+            model, opt = ts.make_trainer(dev, SEED, model=name, **kw)
+            x, y = ts.synthetic_batch(CNN_BATCH, dev, size)
+            setup_s = time.monotonic() - t0
+            n_params = sum(p.numel() for p in model.parameters())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # What earlier phases of this process still hold, so the
+            # model's own peak is the difference.
+            held = torch.cuda.memory_allocated() - sum(
+                t.numel() * t.element_size() for t in
+                list(model.parameters()) + list(model.buffers()) + [x, y])
+            _build.reset_launches()
+            losses = [ts.train_step(model, opt, x, y)
+                      for _ in range(CNN_WARMUP)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [ts.train_step(model, opt, x, y)
+                       for _ in range(CNN_STEPS)]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / CNN_STEPS
+            run = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            losses = [float(v) for v in losses]
+            plan = overlap_plan()
+            _no_port_kernel(f"cnn {name}", run)
+            launches.update(run)
+            if not _is_bypass(plan):
+                raise AssertionError(f"cnn {name} overlap plan: {plan}")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"cnn {name} losses not finite and "
+                                     f"falling: {losses}")
+            with tempfile.TemporaryDirectory() as tmp:
+                breakdown = trace.measure(
+                    f"{name}_step", lambda: ts.train_step(model, opt, x, y),
+                    3, tmp)
+            by_kind = breakdown["device_ms_by_kind"]
+            busy = breakdown["device_busy_ms"]
+            emit("cnn", model=f"{name} (1000 classes, bf16 compute / f32 "
+                 f"params, channels-last, dropout 0)", options=kw,
+                 loss="head + 0.4 * aux" if kw.get("aux_logits") else
+                 "head", params=n_params, batch=CNN_BATCH,
+                 image=[size, size, 3], processes=basics.size(),
+                 setup_s=setup_s, losses=losses, step_ms=step_s * 1e3,
+                 img_per_s=CNN_BATCH / step_s, max_memory_allocated=peak,
+                 held_by_earlier_phases=held, peak_of_model=peak - held,
+                 batchnorm_share_of_busy=by_kind.get("batchnorm", 0.0)
+                 / busy, conv_share_of_busy=by_kind.get("conv", 0.0) / busy,
+                 breakdown=breakdown, launches=run, overlap_plan=plan)
+            del model, opt, x, y
+            _free()
+    finally:
+        basics.shutdown()
+    return {"launches": dict(launches)}
+
+
+def _bn_digest(model) -> str:
+    """sha256 of every BatchNorm's running mean and variance, in order."""
+    import hashlib
+
+    from horovod_tpu_torch.models.resnet import BatchNorm
+
+    return hashlib.sha256(b"".join(
+        t.detach().cpu().numpy().tobytes() for m in model.modules()
+        if isinstance(m, BatchNorm) for t in (m.mean, m.var))).hexdigest()
+
+
+def sync_bn_worker() -> None:
+    """One rank of ``sync_bn_2proc`` (``python -m horovod_tpu_torch.run
+    -np 2 -- python chip_smoke.py --sync-bn-worker``): prints one
+    ``SYNC_BN_REPORT`` JSON line."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch import train_synthetic as ts
+    from horovod_tpu_torch.models.convert import init_state
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.losses import softmax_cross_entropy
+
+    # Two ranks on one card: gloo (NCCL refuses two ranks on one device).
+    basics.init(device="cuda:0", backend="gloo")
+    try:
+        dev, rank = basics.device(), basics.rank()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        n = SYNC_BN_BATCH * basics.size()
+        xs = torch.randn(n, ts.IMAGE, ts.IMAGE, 3, generator=gen, device=dev)
+        ys = torch.randint(0, ts.NUM_CLASSES, (n,), generator=gen,
+                           device=dev)
+        rows = slice(rank * SYNC_BN_BATCH, (rank + 1) * SYNC_BN_BATCH)
+        report = {"rank": rank, "backend": dist.get_backend()}
+        ref_grads = None
+        if rank == 0:
+            # One process on the whole batch with local BatchNorm (built
+            # here alone: make_trainer's broadcast would wait for rank 1).
+            ref = ts.build_model("ResNet50", dev)
+            ref.load_state_dict(init_state(ref, SEED))
+            ref = ref.to(memory_format=torch.channels_last)
+            loss = softmax_cross_entropy(ref(xs, train=True), ys).mean()
+            loss.backward()
+            report["ref_loss"] = float(loss)
+            ref_grads = {k: p.grad.float() for k, p in ref.named_parameters()}
+            del ref, loss
+            _free()
+        _build.reset_launches()
+        for leg, group in (("sync", dist.group.WORLD), ("local", None)):
+            model, opt = ts.make_trainer(dev, SEED, process_group=group)
+            out = {"losses": [], "stats_digests": [], "step_ms": []}
+            for step in range(SYNC_BN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = ts.train_step(model, opt, xs[rows], ys[rows])
+                out["losses"].append(float(loss))
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["stats_digests"].append(_bn_digest(model))
+                if step == 0 and leg == "sync" and ref_grads is not None:
+                    # The averaged gradients the step applied: relative L2
+                    # over all of them, and the worst tensor's.
+                    rel = {k: _rel_l2(p.grad, ref_grads[k])
+                           for k, p in model.named_parameters()}
+                    worst = max(rel, key=rel.get)
+                    diff = sum(float((p.grad.float() - ref_grads[k])
+                                     .square().sum())
+                               for k, p in model.named_parameters())
+                    norm = sum(float(g.square().sum())
+                               for g in ref_grads.values())
+                    out["grad_rel_l2"] = (diff / norm) ** 0.5
+                    out["grad_rel_l2_max"] = rel[worst]
+                    out["worst_param"] = worst
+            report[leg] = out
+            del model, opt
+            _free()
+        report["launches"] = _launches()
+        print("SYNC_BN_REPORT " + json.dumps(report), flush=True)
+    finally:
+        basics.shutdown()
+
+
+def phase_sync_bn_2proc() -> dict:
+    """Two processes on the card under ``python -m horovod_tpu_torch.run
+    -np 2`` (``--sync-bn-worker``), gloo: ResNet-50 with cross-replica
+    BatchNorm (``process_group=WORLD``), ``SYNC_BN_BATCH`` images a rank of
+    one seeded batch, ``SYNC_BN_STEPS`` steps through ``train_synthetic``'s
+    step.  Checks: every BatchNorm's running mean and variance bitwise
+    equal across the ranks after each step, and not so with local
+    BatchNorm (the sync path is live); step 1's mean loss over the ranks
+    and its averaged gradients against one process on the whole batch with
+    local BatchNorm (the train bounds); finite losses; no port kernel."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
+           sys.executable, os.path.abspath(__file__), "--sync-bn-worker"]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=SYNC_BN_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.monotonic() - t0
+    reports = [json.loads(line.split("SYNC_BN_REPORT ", 1)[1])
+               for line in proc.stdout.splitlines()
+               if "SYNC_BN_REPORT " in line]
+    if proc.returncode != 0 or len(reports) != 2:
+        raise AssertionError(f"sync_bn_2proc exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    reports.sort(key=lambda r: r["rank"])
+    launches = collections.Counter()
+    for rep in reports:
+        if rep["backend"] != "gloo":
+            raise AssertionError(f"sync_bn_2proc: {rep['backend']}")
+        _no_port_kernel("sync_bn_2proc", rep["launches"])
+        launches.update(rep["launches"])
+        for leg in ("sync", "local"):
+            if not all(np.isfinite(rep[leg]["losses"])):
+                raise AssertionError(f"sync_bn_2proc {leg}: "
+                                     f"{rep[leg]['losses']}")
+    sync = [rep["sync"]["stats_digests"] for rep in reports]
+    local = [rep["local"]["stats_digests"] for rep in reports]
+    if sync[0] != sync[1]:
+        raise AssertionError("sync_bn_2proc: running statistics differ "
+                             "across ranks with cross-replica BatchNorm")
+    if any(a == b for a, b in zip(*local)):
+        raise AssertionError("sync_bn_2proc: local BatchNorm gave equal "
+                             "running statistics on both ranks")
+    mean_loss = sum(rep["sync"]["losses"][0] for rep in reports) / 2
+    sync0 = reports[0]["sync"]
+    check = {"loss": mean_loss, "ref_loss": reports[0]["ref_loss"],
+             "loss_diff": abs(mean_loss - reports[0]["ref_loss"]),
+             "grad_rel_l2": sync0["grad_rel_l2"],
+             "grad_rel_l2_max": sync0["grad_rel_l2_max"],
+             "worst_param": sync0["worst_param"]}
+    # The train bounds, the gradient's over all parameters: one BatchNorm
+    # scale or bias gradient is a sum of ~50k bf16 products that cancel,
+    # and alone it moves by up to ~10% between two correct roundings (a
+    # CPU rehearsal at 8 images of 112² a rank: bn_init.bias 0.105, all
+    # parameters 0.0115; in f32, 1.9e-3).
+    if check["loss_diff"] > TRAIN_LOSS_ATOL \
+            or check["grad_rel_l2"] > TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"sync_bn_2proc step 1 against the whole "
+                             f"batch: {check}, bounds {TRAIN_LOSS_ATOL}, "
+                             f"{TRAIN_GRAD_REL_L2}")
+    emit("sync_bn_2proc", processes=2, model="ResNet-50 v1.5, bf16, "
+         "cross-replica BatchNorm", batch_per_rank=SYNC_BN_BATCH,
+         steps=SYNC_BN_STEPS, wall_s=wall_s, step_1=check, reports=reports)
+    return {"launches": dict(launches)}
+
+
+def phase_profile() -> dict:
+    """``horovod_tpu_torch.profiling.trace`` around ``PROFILE_STEPS`` steps
+    of the 162M training step (each inside ``annotate("train_step")``),
+    after one untraced step: the Chrome trace must exist and hold the span
+    and a kernel of each of the five port kernels; its bytes and the
+    launches (exact a step)."""
+    import glob
+
+    from horovod_tpu_torch import basics, profiling
+    from horovod_tpu_torch import train_transformer as tt
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import trace
+
+    basics.init()   # NCCL, world 1
+    try:
+        dev = basics.device()
+        cfg = tt.train_config()
+        model, opt = tt.make_trainer(cfg, dev, SEED)
+        tokens = tt.token_batch(cfg.vocab_size, dev)
+        tt.train_step(model, opt, tokens)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with profiling.trace(tmp):
+                for _ in range(PROFILE_STEPS):
+                    with profiling.annotate("train_step"):
+                        tt.train_step(model, opt, tokens)
+                torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+            launches = _launches()
+            (path,) = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+            size = os.path.getsize(path)
+            events = trace._events(path)
+            spans = sum(1 for e in events if e.get("name") == "train_step"
+                        and e.get("ph") == "X")
+            kinds = collections.Counter(
+                trace.kind_of(e["name"]) for e in trace.device_events(path))
+        want = {k: c * PROFILE_STEPS for k, c in _per_step(cfg).items()}
+        if launches != want:
+            raise AssertionError(f"profile launches {launches}, want {want}")
+        missing = [k for k in want if not kinds.get(k)]
+        if spans < PROFILE_STEPS or missing:
+            raise AssertionError(f"profile trace: {spans} train_step spans, "
+                                 f"no kernel of {missing}")
+        emit("profile", trace_file=os.path.basename(path), trace_bytes=size,
+             steps=PROFILE_STEPS, train_step_spans=spans,
+             traced_s=traced_s, device_kernels_by_kind=dict(kinds),
+             launches=launches)
+        del model, opt
+        _free()
+    finally:
+        basics.shutdown()
+    return {"launches": launches}
+
+
+def phase_control_plane() -> None:
+    """The native tools of ``horovod_tpu_torch/core/src/tools``, built by
+    ``core/_build.py`` (``phase_build`` starts them beside the kernels):
+    ``fleet_sim`` at the JAX core Makefile's fleet-soak settings and
+    ``star_bench`` at P = 8.  Host programs: no device work."""
+    from horovod_tpu_torch.core import _build, tools
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(_build.TOOLS)) as pool:
+        list(pool.map(_build.build_tool, _build.TOOLS))
+    build_s = time.monotonic() - t0
+    sim = tools.fleet_sim(FLEET_SIM["p"], FLEET_SIM["ticks"],
+                          fanout=FLEET_SIM["fanout"])
+    star = tools.star_bench(STAR_BENCH_P, STAR_BENCH_TICKS)
+    if not sim["ok"] or sim["agg_frames_per_tick"] != sim["num_groups"]:
+        raise AssertionError(f"fleet_sim: {sim}")
+    if not star["tick_us"] > 0:
+        raise AssertionError(f"star_bench: {star}")
+    emit("control_plane", build_s=build_s, fleet_sim=sim, star_bench=star)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one",
@@ -3691,8 +4046,13 @@ def main() -> int:
             "longctx": longctx["launches"],
             "longctx_2proc": longctx_2proc["launches"],
             "parallel_2proc": parallel_2proc["launches"]}
-    launches = {k: sum(r[k] for r in runs.values()) for k in serve_launches}
     phase_resnet()
+    runs["cnn"] = phase_cnn()["launches"]
+    runs["sync_bn_2proc"] = phase_sync_bn_2proc()["launches"]
+    runs["profile"] = phase_profile()["launches"]
+    phase_control_plane()
+    launches = {k: sum(r.get(k, 0) for r in runs.values())
+                for k in serve_launches}
     entries = []
     tensor_cores, cuda_cores = "tensor cores (wgmma)", "CUDA cores"
     ring = "streamed through a two-stage TMA / mbarrier ring"
@@ -3726,7 +4086,8 @@ def main() -> int:
             "name": name, "route": "cuda", "form": form, "design": design,
             "source": f"horovod_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "launches_by_run": {run: r[name] for run, r in runs.items()},
+            "launches_by_run": {run: r.get(name, 0)
+                                for run, r in runs.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -3753,6 +4114,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--parallel-worker"]:
         parallel_worker()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--sync-bn-worker"]:
+        sync_bn_worker()
         sys.exit(0)
     if sys.argv[1:2] == ["--elastic-worker"]:
         elastic_worker(int(sys.argv[2]), int(sys.argv[3]),

@@ -37,7 +37,11 @@ the fault injectors and :func:`elastic_loop`; and long-context training:
 the context plan (:func:`plan_context`, :func:`context_plan`),
 ring, zigzag and Ulysses attention over a process group
 (``horovod_tpu_torch.parallel``), and ``python -m
-horovod_tpu_torch.train_longseq``.  The
+horovod_tpu_torch.train_longseq``; the rest of parallelism (slice 13);
+and the reference's CNN benchmark table (slice 14): VGG and Inception V3
+with cross-replica BatchNorm (``models/``), ``python -m
+horovod_tpu_torch.train_synthetic`` and ``profiling`` on
+``torch.profiler``.  The
 top-level :func:`synchronize` takes an engine handle (an ``int``);
 ``ops.collective_ops.synchronize`` takes the ``AllreduceHandle`` of
 :func:`grouped_allreduce_async`.  Importing the package creates no process
@@ -83,14 +87,18 @@ _ATTR_HOME = {
     "resolve_device": "horovod_tpu_torch.utils.device",
 }
 _SUBMODULES = {"callbacks", "checkpoint", "data", "parallel"}
+# Attributes that resolve to a module rather than a symbol inside one.
+_MODULE_ATTRS = {"profiling": "horovod_tpu_torch.utils.profiling"}
 
-__all__ = sorted(set(_ATTR_HOME) | _SUBMODULES)
+__all__ = sorted(set(_ATTR_HOME) | _SUBMODULES | set(_MODULE_ATTRS))
 
 
 def __getattr__(name: str):
     home = _ATTR_HOME.get(name)
     if home is not None:
         value = getattr(importlib.import_module(home), name)
+    elif name in _MODULE_ATTRS:
+        value = importlib.import_module(_MODULE_ATTRS[name])
     elif name in _SUBMODULES:
         value = importlib.import_module(f"horovod_tpu_torch.{name}")
     else:

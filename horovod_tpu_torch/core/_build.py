@@ -5,7 +5,10 @@ fusion, the response cache, heartbeats, elastic reconfiguration, the
 Chrome-tracing timeline), copied from ``horovod_tpu/core/src``.  It is
 compiled with ``g++`` into one shared library under
 ``build/horovod_tpu_torch/core/`` of the checkout, at first use, and loaded
-with ``ctypes``.  The library's file name carries a hash of every source
+with ``ctypes``.  The two native tools beside it, the star benchmark and
+the deviceless fleet simulator, build into executables of the same
+directory (:func:`build_tool`; ``core/tools.py`` runs them).  The
+library's file name carries a hash of every source
 and header and of every flag, so an edited source is rebuilt and a stale
 library is never loaded.
 
@@ -42,10 +45,16 @@ from concurrent.futures import ThreadPoolExecutor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "src")
+TOOLS_SRC = os.path.join(SRC, "tools")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "horovod_tpu_torch", "core")
 SOURCES = ("message", "controller", "tree", "timeline", "half", "engine",
            "c_api")
+# The native tools, each its own source (under ``src/tools``) and the core
+# sources it links (``horovod_tpu/core/Makefile``'s ``star_bench`` and
+# ``fleet_sim``).
+TOOLS = {"star_bench": ("message", "controller", "timeline"),
+         "fleet_sim": ("message", "controller", "tree", "timeline")}
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread")
 LINK_FLAGS = ("-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL",
               "-Wl,-Bsymbolic")
@@ -71,13 +80,21 @@ def _flags(cxx: str) -> tuple[str, ...]:
     return CXX_FLAGS + (("-mf16c",) if f16c else ())
 
 
+def _digest(*parts: str, extra: tuple[str, ...] = ()) -> str:
+    """A hash of ``parts``, of every source and header of the library and
+    of the ``extra`` files."""
+    digest = hashlib.sha1(" ".join(parts).encode())
+    files = [os.path.join(SRC, n) for n in sorted(os.listdir(SRC))
+             if n.endswith((".cc", ".h"))]
+    for path in files + list(extra):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return digest.hexdigest()[:12]
+
+
 def library_path(flags: tuple[str, ...]) -> str:
-    digest = hashlib.sha1(" ".join(flags + LINK_FLAGS).encode())
-    for name in sorted(os.listdir(SRC)):
-        if name.endswith((".cc", ".h")):
-            with open(os.path.join(SRC, name), "rb") as f:
-                digest.update(name.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libhvdcore-{digest.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR,
+                        f"libhvdcore-{_digest(*flags, *LINK_FLAGS)}.so")
 
 
 def _compile(cxx: str, flags: tuple[str, ...], out: str) -> None:
@@ -102,11 +119,9 @@ def _compile(cxx: str, flags: tuple[str, ...], out: str) -> None:
         os.replace(lib, out)   # atomic: a loader sees all of it or none
 
 
-def build() -> str:
-    """Build the library if it is not built yet; return its path."""
-    cxx = _cxx()
-    flags = _flags(cxx)
-    out = library_path(flags)
+def _locked_build(out: str, make) -> str:
+    """``make(out)`` under the build directory's lock, unless ``out``
+    exists; returns ``out``."""
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -114,10 +129,52 @@ def build() -> str:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not os.path.exists(out):
-                _compile(cxx, flags, out)
+                make(out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return out
+
+
+def build() -> str:
+    """Build the library if it is not built yet; return its path."""
+    cxx = _cxx()
+    flags = _flags(cxx)
+    return _locked_build(library_path(flags),
+                         lambda out: _compile(cxx, flags, out))
+
+
+def build_tool(name: str) -> str:
+    """Build the native tool ``name`` (a key of :data:`TOOLS`) into an
+    executable of the build directory, as ``horovod_tpu/core/Makefile``'s
+    target of that name builds it, if it is not built yet; return its
+    path."""
+    cxx = _cxx()
+    flags = tuple(f for f in _flags(cxx) if f != "-fPIC")
+    tool = os.path.join(TOOLS_SRC, name + ".cc")
+    sources = [tool] + [os.path.join(SRC, s + ".cc") for s in TOOLS[name]]
+
+    def make(out):
+        # One ``g++ -c`` per source, all at once, then the link.
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            def run(cmd):
+                proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"{os.path.basename(cxx)} failed to build {name} "
+                        f"(exit {proc.returncode}): {' '.join(cmd)}\n"
+                        f"{proc.stdout}")
+
+            objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources))]
+            with ThreadPoolExecutor(len(sources)) as pool:
+                list(pool.map(run, ([cxx, *flags, "-I", SRC, "-c", "-o", o,
+                                     src] for src, o in zip(sources, objs))))
+            exe = os.path.join(tmp, name)
+            run([cxx, *flags, "-o", exe, *objs])
+            os.replace(exe, out)
+
+    digest = _digest(name, *flags, extra=(tool,))
+    return _locked_build(os.path.join(BUILD_DIR, f"{name}-{digest}"), make)
 
 
 def load() -> ctypes.CDLL:

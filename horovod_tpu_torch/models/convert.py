@@ -145,20 +145,24 @@ def stage_state_dict(state_dict: dict, first: int, count: int) -> dict:
     return out
 
 
-# -- ResNet and the MNIST models ---------------------------------------------
+# -- The CNNs: ResNet, VGG, Inception V3 and the MNIST models ----------------
 #
-# The flax models (``horovod_tpu/models/resnet.py``, ``mnist.py``) keep
-# ``params`` and ``batch_stats`` as nested dicts; the port's models hold the
-# same numbers in a ``state_dict``.  Conv kernels are HWIO in flax and OIHW
-# here, Dense kernels ``[in, out]`` and ``[out, in]``; BatchNorm ``scale``,
-# ``bias``, ``mean`` and ``var`` carry over as they are.
+# The flax models (``horovod_tpu/models/{resnet,vgg,inception,mnist}.py``)
+# keep ``params`` and ``batch_stats`` as nested dicts; the port's models hold
+# the same numbers in a ``state_dict``.  Conv kernels are HWIO in flax and
+# OIHW here, Dense kernels ``[in, out]`` and ``[out, in]``; BatchNorm
+# ``scale``, ``bias``, ``mean`` and ``var`` carry over as they are.
 
 
 def _flax_layout(model) -> list[tuple[str, str, tuple, str]]:
     """``(state_dict name, flax collection, flax path, kind)`` for every
-    tensor of a port :class:`~.resnet.ResNet`, :class:`~.mnist.MnistCNN` or
-    :class:`~.mnist.MnistMLP`; kind is ``conv``, ``dense`` or ``vec``."""
-    from horovod_tpu_torch.models import mnist, resnet
+    tensor of a port :class:`~.resnet.ResNet`, :class:`~.vgg.VGG`,
+    :class:`~.inception.InceptionV3`, :class:`~.mnist.MnistCNN` or
+    :class:`~.mnist.MnistMLP`; kind is ``conv``, ``dense`` or ``vec``.
+    flax names the modules a ``compact`` method makes after their class
+    and creation order (``Conv_3``, ``InceptionC_0``), which is the order
+    the port's lists hold them in."""
+    from horovod_tpu_torch.models import inception, mnist, resnet, vgg
 
     out = []
 
@@ -189,6 +193,33 @@ def _flax_layout(model) -> list[tuple[str, str, tuple, str]]:
                 conv(f"{pre}.conv_proj", path + ("conv_proj",))
                 norm(f"{pre}.norm_proj", path + ("norm_proj",))
         dense("head", ("head",))
+    elif isinstance(model, vgg.VGG):
+        for j in range(len(model.convs)):
+            conv(f"convs.{j}", (f"Conv_{j}",), bias=not model.batch_norm)
+            if model.batch_norm:
+                norm(f"norms.{j}", (f"BatchNorm_{j}",))
+        for j in range(len(model.dense)):
+            dense(f"dense.{j}", (f"Dense_{j}",))
+        dense("head", ("head",))
+    elif isinstance(model, inception.InceptionV3):
+        top = list(model.stem) + list(model.aux or ())
+        for j, unit in enumerate(top):
+            name = f"stem.{j}" if j < len(model.stem) else \
+                f"aux.{j - len(model.stem)}"
+            conv(f"{name}.conv", (f"Conv_{j}",))
+            norm(f"{name}.norm", (f"BatchNorm_{j}",))
+        seen: dict = {}
+        for i, block in enumerate(model.blocks):
+            kind = type(block).__name__
+            path = (f"{kind}_{seen.get(kind, 0)}",)
+            seen[kind] = seen.get(kind, 0) + 1
+            for j in range(len(block.units)):
+                conv(f"blocks.{i}.units.{j}.conv", path + (f"Conv_{j}",))
+                norm(f"blocks.{i}.units.{j}.norm",
+                     path + (f"BatchNorm_{j}",))
+        if model.aux_head is not None:
+            dense("aux_head", ("aux_head",))
+        dense("head", ("head",))
     elif isinstance(model, mnist.MnistCNN):
         for j in range(len(model.convs)):
             conv(f"convs.{j}", (f"Conv_{j}",), bias=True)
@@ -213,8 +244,9 @@ def _to_torch(a, kind):
 
 def from_flax(variables, model) -> dict:
     """Flax ``{"params": ..., "batch_stats": ...}`` (numpy leaves) ->
-    ``state_dict`` of CPU f32 tensors for ``model`` (a port ResNet or MNIST
-    model); ``load_state_dict`` copies them to its device."""
+    ``state_dict`` of CPU f32 tensors for ``model`` (a port ResNet, VGG,
+    Inception V3 or MNIST model); ``load_state_dict`` copies them to its
+    device."""
     sd = {}
     for name, coll, path, kind in _flax_layout(model):
         leaf = variables[coll]
@@ -237,7 +269,9 @@ def to_flax(state_dict, model) -> dict:
         node = out.setdefault(coll, {})
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+        # A copy: a vector's array would otherwise share the tensor's
+        # memory and follow every later step of the model.
+        node[path[-1]] = np.array(a, order="C", copy=True)
     return out
 
 
@@ -270,6 +304,6 @@ def init_variables(model, seed: int = 0) -> dict:
 
 
 def init_state(model, seed: int = 0) -> dict:
-    """Seeded random ``state_dict`` for a port ResNet or MNIST model (CPU
-    tensors), by way of :func:`init_variables`' flax layout."""
+    """Seeded random ``state_dict`` for a port CNN (CPU tensors), by way of
+    :func:`init_variables`' flax layout."""
     return from_flax(init_variables(model, seed), model)

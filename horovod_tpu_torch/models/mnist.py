@@ -13,14 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch.models.resnet import Conv
+from horovod_tpu_torch.models.resnet import Conv, dense
 from horovod_tpu_torch.utils.device import resolve_device
-
-
-def _dense(x, layer: nn.Linear, dtype):
-    """flax ``Dense(dtype=...)``: both operands cast to ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
 
 
 class MnistCNN(nn.Module):
@@ -47,8 +41,8 @@ class MnistCNN(nn.Module):
             x = F.relu(conv(x))
         x = F.max_pool2d(x, 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC order
-        x = F.relu(_dense(x, self.dense[0], self.dtype))
-        return _dense(x.float(), self.dense[1], torch.float32)
+        x = F.relu(dense(x, self.dense[0], self.dtype))
+        return dense(x.float(), self.dense[1], torch.float32)
 
 
 class MnistMLP(nn.Module):

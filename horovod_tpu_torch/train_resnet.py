@@ -27,81 +27,31 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from horovod_tpu_torch import basics
-from horovod_tpu_torch.models.convert import init_state
-from horovod_tpu_torch.models.resnet import ResNet50
-from horovod_tpu_torch.ops.losses import softmax_cross_entropy
+from horovod_tpu_torch import basics, train_synthetic
 from horovod_tpu_torch.ops.schedule_plan import overlap_plan
-from horovod_tpu_torch.training import (DistributedOptimizer,
-                                        broadcast_parameters)
+from horovod_tpu_torch.train_synthetic import (  # noqa: F401
+    IMAGE, LR, MOMENTUM, NUM_CLASSES, SEED, card, synthetic_batch,
+    train_step)
 
 BASELINE_IMG_PER_SEC_PER_DEVICE = 1656.82 / 16  # reference docs/benchmarks.md:34-38
-IMAGE = 224
-NUM_CLASSES = 1000
-LR = 0.01
-MOMENTUM = 0.9
-SEED = 0
+
+# ResNet-50 (or the ResNet ``model_kw`` names) with seeded weights,
+# broadcast from rank 0, in channels-last memory, and its distributed SGD
+# (``train_synthetic.make_trainer``).  Needs :func:`basics.init`.
+make_trainer = functools.partial(train_synthetic.make_trainer,
+                                 model="ResNet50")
 
 
 def knob(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
-
-
-def make_trainer(device, seed: int = SEED, dtype=torch.bfloat16, **model_kw):
-    """ResNet-50 (or the ResNet ``model_kw`` names) with seeded weights,
-    broadcast from rank 0, in channels-last memory, and its distributed
-    SGD.  Needs :func:`basics.init`."""
-    kw = {"num_classes": NUM_CLASSES, **model_kw}
-    model = ResNet50(dtype=dtype, device=device, **kw)
-    model.load_state_dict(init_state(model, seed))
-    model = model.to(memory_format=torch.channels_last)
-    broadcast_parameters(model, root_rank=0)
-    opt = DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=LR, momentum=MOMENTUM),
-        named_parameters=model.named_parameters())
-    return model, opt
-
-
-def synthetic_batch(batch: int, device, image: int = IMAGE,
-                    num_classes: int = NUM_CLASSES, seed: int = SEED):
-    """This card's fixed batch: ``[batch, image, image, 3]`` f32 images
-    N(0, 1) and integer labels, from a generator seeded by ``seed`` and the
-    rank."""
-    gen = torch.Generator(device=device).manual_seed(seed + basics.rank())
-    x = torch.randn(batch, image, image, 3, generator=gen, device=device)
-    y = torch.randint(0, num_classes, (batch,), generator=gen, device=device)
-    return x, y
-
-
-def train_step(model, opt, x, y) -> torch.Tensor:
-    """One step: forward (batch statistics, running averages updated),
-    backward, averaged gradients, SGD update.  Returns the loss (on the
-    device; reading it waits for the step)."""
-    opt.zero_grad(set_to_none=True)
-    loss = softmax_cross_entropy(model(x, train=True), y).mean()
-    loss.backward()
-    opt.step()
-    return loss.detach()
-
-
-def card() -> str | None:
-    """``nvidia-smi``'s name and power limit of this process's card."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", f"--id={basics.local_rank()}",
-             "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.strip() or None
 
 
 def run(batch: int, warmup: int, iters: int, batches_per_iter: int) -> dict:

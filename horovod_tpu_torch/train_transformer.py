@@ -21,6 +21,11 @@ The JAX benchmark's mixed-precision and memory flags, with its meanings:
   with ``backward_passes_per_step=N``; ``BATCH`` stays the effective batch,
   activations peak at ``BATCH / N`` rows.
 
+``--profile DIR`` traces one more step after the warm-up into a Chrome
+trace under ``DIR`` (rank 0; ``horovod_tpu_torch.profiling.trace``, the
+step inside an ``annotate("train_step")`` span), as the JAX benchmark's
+``--profile`` traces one dispatch.
+
 It prints one JSON line, ``transformer_train_throughput``: tokens/s over the
 timed steps (host clock around steps that end in a synchronize), step time,
 MFU against the H100's dense bf16 peak, counting ``6·N + 6·L·S·E``
@@ -47,6 +52,7 @@ from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.training import (DistributedOptimizer,
                                         accumulate_gradients,
                                         broadcast_parameters, master_weights)
+from horovod_tpu_torch.utils import profiling
 
 BATCH = 8
 SEQ_LEN = 1024
@@ -133,6 +139,9 @@ def parse_args(argv=None):
     ap.add_argument("--accumulate", type=int, default=1,
                     help="microbatches a step (accumulate_gradients); the "
                          "batch stays the effective batch")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace one step after the warm-up into DIR (rank "
+                         "0; horovod_tpu_torch.profiling.trace)")
     return ap.parse_args(argv)
 
 
@@ -158,6 +167,11 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(WARMUP_STEPS):
             train_step(model, opt, tokens, args.accumulate)
+        if args.profile:
+            with profiling.trace(args.profile):
+                with profiling.annotate("train_step"):
+                    train_step(model, opt, tokens, args.accumulate)
+                torch.cuda.synchronize()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(TIMED_STEPS):

@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from horovod_tpu_torch import basics
-from horovod_tpu_torch.ops import collective_ops, schedule_plan
+from horovod_tpu_torch.ops import collective_ops, fusion, schedule_plan
 from horovod_tpu_torch.ops.compression import Compression
 
 
@@ -298,6 +298,25 @@ class _DistributedOptimizer:
         self._fires = [0] * len(self._params)
         self._missing = [len(idx) for idx in self._buckets]
         self._next = 0
+
+    def fusion_buckets(self) -> int:
+        """How many flat buffers, one collective each, a step's dense
+        allreduce packs the gradients into at the current fusion threshold
+        (``threshold_bytes``, else ``HOROVOD_FUSION_THRESHOLD``, read at
+        each step): every chained bucket's own packing, or the whole
+        gradient set's.  0 before the first step and on the int8 wire,
+        which packs none."""
+        if not self._planned or self._int8:
+            return 0
+        groups = self._buckets if self._plan.chained else [self._dense]
+
+        def wire(p):
+            return self._compression.compress(
+                torch.empty(0, dtype=p.dtype))[0].dtype
+
+        return sum(len(fusion.plan_buckets(
+            [(self._params[i].shape, wire(self._params[i])) for i in idx],
+            self._threshold_bytes)) for idx in groups)
 
     def step(self, closure=None):
         self.synchronize()
