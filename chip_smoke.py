@@ -256,6 +256,14 @@ line each:
                  ``horovod_tpu_torch/core/src/tools`` (both at once) and
                  run: ``fleet_sim --p 64 --fanout 8 --ticks 12`` and
                  ``star_bench`` at P = 8 (host programs);
+   analysis    — the analysis tools on the card's host, each timed: every
+                 golden frame of the port's wire mirror
+                 (``analysis/protocol/wire.py``, 17 frame types) and the
+                 bulk token against the port's native encoder as built
+                 here; the port's linter over ``horovod_tpu_torch``,
+                 ``tests/test_torch_*.py`` and this script (0 findings);
+                 ``python -m horovod_tpu_torch.analysis.protocol`` at its
+                 default depth ("all invariants hold");
 10. kernels    — ``{"kernels": [...]}``, one entry per kernel of the path,
                  with the form it runs in for bf16 inputs (the three flash
                  kernels on the tensor cores, the two RMSNorm kernels on
@@ -3997,6 +4005,60 @@ def phase_control_plane() -> None:
     emit("control_plane", build_s=build_s, fleet_sim=sim, star_bench=star)
 
 
+def phase_analysis() -> None:
+    """The analysis tools on the card's host (no device work): the wire
+    mirror's golden frames and bulk token against the port's native core
+    as built here, the linter over the port's tree, and the model check at
+    its default depth."""
+    import ctypes
+
+    from horovod_tpu_torch.analysis import lint
+    from horovod_tpu_torch.analysis.protocol import wire
+    from horovod_tpu_torch.core import check, engine
+
+    t0 = time.monotonic()
+    frames = wire.golden_frames()
+    drifted = [name for ftype, name, framed in frames
+               if engine.frame_golden(ftype) != framed]
+    lib = engine.lib()
+    lib.hvd_bulk_token.restype = ctypes.c_uint64
+    lib.hvd_bulk_token.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_int]
+    tokens = ((99, 3, 1, 2), (0, 0, 0, 0), (1 << 40, 7, 5, 11))
+    if drifted or {t for t, _n, _b in frames} != set(wire.FRAME_NAMES) or \
+            any(wire.bulk_token(*a) != lib.hvd_bulk_token(*a)
+                for a in tokens):
+        raise AssertionError(f"analysis: the wire mirror and the native "
+                             f"encoder disagree on {drifted or 'the token'}")
+    frames_s = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = [os.path.join(here, p) for p in check.lint_targets()]
+    errors = lint.lint_paths(paths)
+    if errors:
+        raise AssertionError("analysis: lint findings:\n" + "\n".join(
+            e.render() for e in errors))
+    lint_s = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MODELCHECK_")}
+    run = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.analysis.protocol"],
+        capture_output=True, text=True, env=env, cwd=here, timeout=300)
+    last = (run.stdout.strip().splitlines() or [""])[-1]
+    if run.returncode != 0 or "all invariants hold" not in last:
+        raise AssertionError(f"analysis: model check failed "
+                             f"(exit {run.returncode}):\n{run.stdout[-3000:]}"
+                             f"{run.stderr[-2000:]}")
+    modelcheck_s = time.monotonic() - t0
+    emit("analysis", frames=len(frames), frames_s=frames_s,
+         lint_files=len(lint.iter_py_files(paths)), lint_findings=0,
+         lint_s=lint_s, modelcheck_states=int(last.split()[1]),
+         modelcheck_s=modelcheck_s, modelcheck=last)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one",
@@ -4051,6 +4113,7 @@ def main() -> int:
     runs["sync_bn_2proc"] = phase_sync_bn_2proc()["launches"]
     runs["profile"] = phase_profile()["launches"]
     phase_control_plane()
+    phase_analysis()
     launches = {k: sum(r.get(k, 0) for r in runs.values())
                 for k in serve_launches}
     entries = []

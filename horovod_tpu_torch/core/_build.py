@@ -29,12 +29,23 @@ process loaded first (PyTorch's): built by a ``CXX`` other than the
 system's, without these flags, every replica of a fleet crashed in the
 first ``std::ostringstream`` of an elastic reconfiguration, inside
 ``std::ostream::_M_insert``.
+
+A second variant, the ThreadSanitizer build (``HVD_TPU_CORE_TSAN=1``, the
+counterpart of the JAX core Makefile's ``tsan`` target), compiles the same
+sources with :data:`TSAN_FLAGS` into ``libhvdcore-tsan-<hash>.so`` of the
+same directory.  It links its C++ runtime dynamically, as ThreadSanitizer
+needs, and loads only with the ``libtsan`` runtime preloaded
+(``LD_PRELOAD``), which ``python -m horovod_tpu_torch.core.check``'s TSAN
+leg sets.  Either variant is always built from this package's own sources:
+no environment variable names a library path, so the JAX package's library
+is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import hashlib
 import os
 import shutil
@@ -58,6 +69,9 @@ TOOLS = {"star_bench": ("message", "controller", "timeline"),
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread")
 LINK_FLAGS = ("-static-libstdc++", "-static-libgcc", "-Wl,--exclude-libs,ALL",
               "-Wl,-Bsymbolic")
+# The ThreadSanitizer variant: ``-O2`` gives way to these.
+TSAN_FLAGS = ("-O1", "-g", "-fsanitize=thread")
+TSAN_LINK_FLAGS = ("-fsanitize=thread",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -92,12 +106,45 @@ def _digest(*parts: str, extra: tuple[str, ...] = ()) -> str:
     return digest.hexdigest()[:12]
 
 
-def library_path(flags: tuple[str, ...]) -> str:
-    return os.path.join(BUILD_DIR,
-                        f"libhvdcore-{_digest(*flags, *LINK_FLAGS)}.so")
+def tsan_requested() -> bool:
+    """True when ``HVD_TPU_CORE_TSAN=1`` asks for the ThreadSanitizer
+    variant of the library."""
+    return os.environ.get("HVD_TPU_CORE_TSAN", "") == "1"
 
 
-def _compile(cxx: str, flags: tuple[str, ...], out: str) -> None:
+def tsan_runtime() -> str | None:
+    """Path of the ``libtsan`` runtime to preload for the ThreadSanitizer
+    variant, or None.  Its soname differs by gcc major (``libtsan.so.0``
+    on gcc 10, ``.so.2`` from gcc 12) and distributions keep it in
+    different directories, so the usual places are searched; the highest
+    version wins."""
+    for pattern in ("/usr/lib/x86_64-linux-gnu/libtsan.so.*",
+                    "/lib/x86_64-linux-gnu/libtsan.so.*",
+                    "/usr/lib/gcc/x86_64-linux-gnu/*/libtsan.so",
+                    "/usr/lib64/libtsan.so.*"):
+        hits = sorted(p for p in glob.glob(pattern) if not p.endswith(".py"))
+        if hits:
+            return hits[-1]
+    return None
+
+
+def _variant(flags: tuple[str, ...], tsan: bool
+             ) -> tuple[str, tuple[str, ...], tuple[str, ...]]:
+    """(file-name prefix, compile flags, link flags) of one variant."""
+    if not tsan:
+        return "libhvdcore", flags, LINK_FLAGS
+    return ("libhvdcore-tsan",
+            tuple(f for f in flags if f != "-O2") + TSAN_FLAGS,
+            TSAN_LINK_FLAGS)
+
+
+def library_path(flags: tuple[str, ...], tsan: bool = False) -> str:
+    prefix, flags, link = _variant(flags, tsan)
+    return os.path.join(BUILD_DIR, f"{prefix}-{_digest(*flags, *link)}.so")
+
+
+def _compile(cxx: str, flags: tuple[str, ...], out: str,
+             link_flags: tuple[str, ...] = LINK_FLAGS) -> None:
     """One ``g++ -c`` per source, all at once, then the link, in a
     temporary directory; the library is renamed into ``out`` at the end."""
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -115,7 +162,7 @@ def _compile(cxx: str, flags: tuple[str, ...], out: str) -> None:
                                  os.path.join(SRC, s + ".cc")]
                                 for s, o in zip(SOURCES, objs))))
         lib = os.path.join(tmp, "lib.so")
-        run([cxx, "-shared", *flags, *LINK_FLAGS, "-o", lib, *objs])
+        run([cxx, "-shared", *flags, *link_flags, "-o", lib, *objs])
         os.replace(lib, out)   # atomic: a loader sees all of it or none
 
 
@@ -135,12 +182,14 @@ def _locked_build(out: str, make) -> str:
     return out
 
 
-def build() -> str:
-    """Build the library if it is not built yet; return its path."""
+def build(tsan: bool = False) -> str:
+    """Build the library (its ThreadSanitizer variant if ``tsan``) if it is
+    not built yet; return its path."""
     cxx = _cxx()
-    flags = _flags(cxx)
-    return _locked_build(library_path(flags),
-                         lambda out: _compile(cxx, flags, out))
+    base = _flags(cxx)
+    _prefix, flags, link = _variant(base, tsan)
+    return _locked_build(library_path(base, tsan),
+                         lambda out: _compile(cxx, flags, out, link))
 
 
 def build_tool(name: str) -> str:
@@ -178,9 +227,10 @@ def build_tool(name: str) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded library, built at the first call.  Thread-safe."""
+    """The loaded library, built at the first call: the ThreadSanitizer
+    variant when :func:`tsan_requested`, else the plain one.  Thread-safe."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(build())
+            _lib = ctypes.CDLL(build(tsan=tsan_requested()))
         return _lib

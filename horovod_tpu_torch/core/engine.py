@@ -97,6 +97,8 @@ def _load_library() -> ctypes.CDLL:
     # Builds at the first call in any process (several replicas may race;
     # _build serializes them on a file lock and renames the finished
     # library into place).  A failed build raises; nothing else is tried.
+    # HVD_TPU_CORE_TSAN=1 selects the ThreadSanitizer variant, built from
+    # the same sources of this package.
     lib = _build.load()
     lib.hvd_create.restype = ctypes.c_void_p
     lib.hvd_create.argtypes = [
@@ -218,8 +220,8 @@ def lib() -> ctypes.CDLL:
 def frame_golden(frame_type: int) -> bytes:
     """The native golden wire vector for ``frame_type`` (c_api.cc
     hvd_frame_golden): complete framed bytes with canonical field values.
-    Conformance anchor for horovod_tpu/analysis/protocol/wire.py and the
-    tests/golden/frames/ fixtures; raises for an unknown frame type."""
+    Conformance anchor for horovod_tpu_torch/analysis/protocol/wire.py and
+    the tests/golden/frames/ fixtures; raises for an unknown frame type."""
     buf = ctypes.create_string_buffer(1 << 16)
     n = lib().hvd_frame_golden(frame_type, buf, len(buf))
     if n == 0:

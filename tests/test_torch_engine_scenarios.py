@@ -11,8 +11,8 @@ test pins as ``rank`` or ``rank + 1`` is the sum over the ranks here, and
 a ragged allgather returns every rank's rows.  The control-plane facts
 each scenario pins (cache hits and misses, bypassed ticks, coordinated
 errors, the verifier's report, the stall report and its escalation) are
-the JAX tests' own.  Their ThreadSanitizer case needs a TSAN build of the
-port's core, which ``core/_build.py`` does not make (ROADMAP)."""
+the JAX tests' own.  Their ThreadSanitizer case runs against the TSAN
+variant of the port's core in ``tests/test_torch_tsan.py``."""
 
 import multiprocessing
 import os

@@ -17,9 +17,8 @@ The elastic chaos soak re-forms the engine at size 2 in place; a
 elastic mode serves engine-only workers (``basics._apply_resize``), so
 those children run the ``local`` executor, as ``chip_smoke.py``'s
 ``train_elastic_3proc`` does.  The launcher case is
-``tests/test_torch_launcher.py``'s; the ThreadSanitizer case needs a TSAN
-build of the port's core, which ``core/_build.py`` does not make
-(ROADMAP)."""
+``tests/test_torch_launcher.py``'s; the ThreadSanitizer case is
+``tests/test_torch_tsan.py``'s."""
 
 import os
 import signal
