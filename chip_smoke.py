@@ -39,7 +39,14 @@ line each:
                  and zero gradients, bit for bit), with times of each
                  kernel, its plain version and
                  ``F.scaled_dot_product_attention`` with the same boolean
-                 mask (forward, or its backward), and each bound;
+                 mask (forward, or its backward), and each bound; then
+                 the same at ``longctx_audit``'s calls in the examples
+                 phase, ``[1, S, 2, 64]`` bf16, causal: the plain ring at
+                 S = 256 a rank over two ranks, ``(q_offset, k_offset)``
+                 in (0, 0), (256, 0) and (256, 256), and the zigzag
+                 halves at S = 128, every pair of 0, 128, 256 and 384
+                 (the examples phase fails if the audit made a call these
+                 rows leave out);
 5. rmsnorm     — the RMSNorm forward kernel against its plain version at
                  ``[N, 768]`` bf16 for every N a main path gives it (the
                  run records each shape it launches at from ``serve`` to
@@ -264,6 +271,30 @@ line each:
                  ``tests/test_torch_*.py`` and this script (0 findings);
                  ``python -m horovod_tpu_torch.analysis.protocol`` at its
                  default depth ("all invariants hold");
+   examples    — the repo's example entry points
+                 (``horovod_tpu_torch.examples``) on the card, each a child
+                 under ``python -m horovod_tpu_torch.run``, full width and
+                 cut step counts, all 13: ``mnist`` (1 epoch),
+                 ``mnist_advanced`` (its 4 epochs of 8 steps: warmup,
+                 decay), ``imagenet_resnet50``
+                 (224², 32 images, 2 steps an epoch: 1 epoch, then 2 that
+                 resume from epoch 0), ``word2vec`` (20 steps),
+                 ``torch_mnist`` (1 epoch), ``torch_synthetic_benchmark``
+                 (convnet), ``collective_microbench`` (1, 16, 256 MB and
+                 the dispatch floor), ``control_plane_benchmark`` (world 1,
+                 then ``--star 8,64``), ``weak_scaling_benchmark`` (16 MB),
+                 ``resnet_bn_experiment`` (64 images, both legs with their
+                 breakdowns), ``int8_convergence`` (width 64 on the port's
+                 wire, 40 steps: each int8 run within 0.01 of the f32
+                 losses), ``overlap_audit`` (world 1: the bypass) and
+                 ``longctx_audit`` (two processes on the card over gloo,
+                 ``--assert-planner``: the three flash kernels at the
+                 ring's offsets, each call one that ``flash_offsets``
+                 checked).  Each child's return code and lines are
+                 checked; the children checked only for correctness run
+                 five at a time, then the ones whose numbers PERF.md
+                 reads run alone; the phase's seconds, each child's, and
+                 their rows;
 10. kernels    — ``{"kernels": [...]}``, one entry per kernel of the path,
                  with the form it runs in for bf16 inputs (the three flash
                  kernels on the tensor cores, the two RMSNorm kernels on
@@ -272,8 +303,8 @@ line each:
                  serve_fleet (summed over its replicas' reports), train,
                  train_eager, train_resume (summed over its processes),
                  longctx, longctx_2proc, parallel_2proc (summed over
-                 its ranks and legs), cnn and sync_bn_2proc (0 each) and
-                 profile runs,
+                 its ranks and legs), cnn and sync_bn_2proc (0 each),
+                 profile and examples (``longctx_audit``'s ranks) runs,
                  each counted from 0 around its own run
                  (``launches_by_run``).
 
@@ -291,6 +322,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -324,16 +356,36 @@ ROUTER_REQUESTS, ROUTER_NEW, ROUTER_SLO_MS = 8, 16, 1000.0
 # report within 120 s.
 FLEET_FOUNDERS, FLEET_QPS, FLEET_DURATION_S = 2, 4.0, 6.0
 FLEET_JOIN_AFTER_S, FLEET_PROBE_TOKENS, FLEET_TIMEOUT_S = 2.0, 16, 120.0
-# flash_offsets: the three flash kernels at [1, S, 16, 128] bf16 (the
-# long-context model's heads), (S, q_offset, k_offset): with both offsets
+# flash_offsets: the three flash kernels at [1, S, H, D] bf16, (S,
+# q_offset, k_offset, H, D): at the long-context model's 16 heads of 128,
+# with both offsets
 # set, as ring and zigzag attention launch them (queries past their keys,
 # both past the diagonal, and keys after every query: at S = 2048 wholly
 # masked, out 0, lse NEG_INF, zero gradients; S = 2048 is a zigzag
 # half-pair at S = 8192 over two ranks), and the width-1 calls at S =
 # 8192 and 32768.
-FLASH_OFFSET_ROWS = tuple((s, q, k) for s in (2048, 4096)
+# The examples phase's longctx_audit: two ranks of S = 256 tokens, 2
+# heads of 64; its plain ring calls the kernels at S = 256 (rank r's
+# queries at r·S against each earlier shard), its zigzag ring at the
+# halves, S = 128, every pair of the four chunks' offsets.
+LONGCTX_AUDIT_RANKS, LONGCTX_AUDIT_SEQ = 2, 256
+LONGCTX_AUDIT_HEADS, LONGCTX_AUDIT_HEAD_DIM = 2, 64
+
+
+def _audit_offset_rows() -> tuple:
+    n, s, c = LONGCTX_AUDIT_RANKS, LONGCTX_AUDIT_SEQ, LONGCTX_AUDIT_SEQ // 2
+    chunks = sorted({o for r in range(n)
+                     for o in (r * c, (2 * n - 1 - r) * c)})
+    hd = (LONGCTX_AUDIT_HEADS, LONGCTX_AUDIT_HEAD_DIM)
+    return tuple((s, my * s, owner * s) + hd for my in range(n)
+                 for owner in range(my + 1)) + tuple(
+        (c, q, k) + hd for q in chunks for k in chunks)
+
+
+FLASH_OFFSET_ROWS = tuple((s, q, k, 16, 128) for s in (2048, 4096)
                           for q, k in ((2048, 0), (4096, 2048), (0, 2048))
-                          ) + ((8192, 0, 0), (32768, 0, 0))
+                          ) + ((8192, 0, 0, 16, 128), (32768, 0, 0, 16, 128)
+                               ) + _audit_offset_rows()
 # longctx: train_longseq at full width and depth (8 x 2048, 16 heads of
 # 128, GLU 8192, vocab 32000), width 1, 3 warm-up and 5 timed steps at
 # each length; longctx_2proc: two processes on the card under the
@@ -2567,8 +2619,6 @@ def _final_params(ckpt_dir) -> dict:
 def phase_train_resume() -> dict:
     """The 162M step through a kill and a restart (see the module
     docstring, ``train_resume``)."""
-    import shutil
-
     from horovod_tpu_torch import train_transformer as tt
 
     root = tempfile.mkdtemp(prefix="hvd_train_resume_")
@@ -2840,8 +2890,6 @@ def phase_train_elastic_3proc(deterministic: bool) -> dict:
     """Three engine-only processes on the card; rank 2 SIGKILLed at step
     3; the survivors shrink in place and restore from the peer replica
     (see the module docstring, ``train_elastic_3proc``)."""
-    import shutil
-
     from horovod_tpu_torch import train_transformer as tt
 
     root = tempfile.mkdtemp(prefix="hvd_train_elastic_")
@@ -2911,7 +2959,8 @@ def phase_train_elastic_3proc(deterministic: bool) -> dict:
 
 def phase_flash_offsets() -> list:
     """The three flash kernels against their plain versions at the
-    long-context path's shapes and offsets (:data:`FLASH_OFFSET_ROWS`),
+    long-context path's and ``longctx_audit``'s shapes and offsets
+    (:data:`FLASH_OFFSET_ROWS`),
     with times of the
     kernel, the plain version and ``F.scaled_dot_product_attention`` with
     the same boolean mask (its backward for dq and dk/dv), and each
@@ -2920,18 +2969,18 @@ def phase_flash_offsets() -> list:
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    h, d = 16, 128
     rows = []
-    for s in sorted({s for s, _, _ in FLASH_OFFSET_ROWS}):
+    for s, h, d in sorted({(s, h, d) for s, _, _, h, d in FLASH_OFFSET_ROWS}):
         q, k, v, dout = (_bshd(gen, 1, s, h, d, False) for _ in range(4))
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         dout_t = dout.transpose(1, 2).contiguous()
-        for q_off, k_off in ((q, k) for r, q, k in FLASH_OFFSET_ROWS
-                             if r == s):
+        for q_off, k_off in ((q, k) for r, q, k, rh, rd in FLASH_OFFSET_ROWS
+                             if (r, rh, rd) == (s, h, d)):
             visible = _visible(s, s, True, q_off, k_off)
             pairs = int(visible.sum())
-            tag = f"flash_offsets S={s} q_offset={q_off} k_offset={k_off}"
+            tag = f"flash_offsets S={s} H={h} D={d} q_offset={q_off} " \
+                  f"k_offset={k_off}"
             out, lse = fa.flash_attention_with_lse(q, k, v, True, q_off,
                                                    k_off)
             delta = (dout.float() * out.float()).sum(dim=-1)
@@ -4005,6 +4054,270 @@ def phase_control_plane() -> None:
     emit("control_plane", build_s=build_s, fleet_sim=sim, star_bench=star)
 
 
+EXAMPLES_TIMEOUT_S = 300
+# int8_convergence on the port's wire (±127 levels a worker): how far an
+# int8 run's mean loss may stray from the f32 run's at a recorded step (at
+# width 64 on the CPU they agree to 2e-4 over 40 steps).
+INT8_F32_GAP = 0.01
+
+
+def _example(np_: int, module: str, *args: str) -> tuple[list[str], float]:
+    """Run ``python -m horovod_tpu_torch.examples.<module>`` under the
+    launcher; its output lines without the launcher's rank tags, and its
+    seconds.  A child that fails fails the phase."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(np_),
+           "--", sys.executable, "-m", f"horovod_tpu_torch.examples.{module}",
+           *args]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=EXAMPLES_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"examples: {module} exited {proc.returncode}:"
+                             f"\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = [line.split("]: ", 1)[1] if line.startswith("[") and "]: " in
+             line else line for line in proc.stdout.splitlines()]
+    return lines, wall_s
+
+
+def _json_rows(lines) -> list[dict]:
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def _expect(module: str, lines, *needles: str) -> None:
+    text = "\n".join(lines)
+    for needle in needles:
+        if needle not in text:
+            raise AssertionError(f"examples: {module} printed no "
+                                 f"{needle!r}:\n{text[-3000:]}")
+
+
+def _final_loss(module: str, lines, np_: int = 1) -> float:
+    finals = [line for line in lines if f"/{np_}] final loss=" in line]
+    if len(finals) != np_:
+        raise AssertionError(f"examples: {module}: {finals}")
+    loss = float(finals[0].split("final loss=", 1)[1].split()[0])
+    if not math.isfinite(loss):
+        raise AssertionError(f"examples: {module}: final loss {loss}")
+    return loss
+
+
+def _check_mnist(lines) -> dict:
+    _expect("mnist", lines, "epoch 0: loss=")
+    return {"mnist_final_loss": _final_loss("mnist", lines)}
+
+
+def _check_word2vec(lines) -> dict:
+    _expect("word2vec", lines, "step 0: loss=", "step 10: loss=")
+    return {"word2vec_final_loss": _final_loss("word2vec", lines)}
+
+
+def _check_mnist_advanced(lines) -> dict:
+    _expect("mnist_advanced", lines, "epoch 0: {'loss': ",
+            "finished gradual learning rate warmup", "epoch 3: {'loss': ")
+    return {"mnist_advanced_final_loss": _final_loss("mnist_advanced",
+                                                     lines)}
+
+
+def _check_int8(lines) -> dict:
+    """The port's wire at width 64: three trajectories of finite losses
+    from the same start, the int8 runs within INT8_F32_GAP of the f32 one
+    at every recorded step."""
+    (row,) = _json_rows(lines)
+    runs = [row[m] for m in ("f32", "int8_ef", "int8_noef")]
+    if not (row["wire"] == "qwire" and row["per_worker_levels"] == 127
+            and row["card"] and len({len(r) for r in runs}) == 1
+            and all(math.isfinite(x) for r in runs for x in r)
+            and runs[1][0] == runs[0][0] == runs[2][0]
+            and all(abs(a - b) <= INT8_F32_GAP for r in runs[1:]
+                    for a, b in zip(r, runs[0]))):
+        raise AssertionError(f"examples: int8_convergence: {row}")
+    return {"int8_convergence": {k: row[k] for k in (
+        "width", "wire", "steps", "f32", "int8_ef", "int8_noef")}}
+
+
+def _check_torch_mnist(lines) -> dict:
+    _expect("torch_mnist", lines, "epoch 0: loss=")
+    return {"torch_mnist_final_loss": _final_loss("torch_mnist", lines)}
+
+
+def _check_synthetic(lines) -> dict:
+    _expect("torch_synthetic_benchmark", lines, "Img/sec per worker:",
+            "Total img/sec on 1 worker(s)")
+    return {"torch_synthetic_img_s": float(
+        [line for line in lines if line.startswith("Img/sec per worker:")]
+        [0].split()[3])}
+
+
+def _check_overlap_audit(lines) -> dict:
+    (row,) = _json_rows(lines)
+    if not (_is_bypass(row["plan"]) and row["optimizer_hooks"] == 0
+            and row["buckets_issued"] == []):
+        raise AssertionError(f"examples: overlap_audit at world 1: {row}")
+    return {"overlap_audit": {k: row[k] for k in (
+        "plan", "optimizer_hooks", "buckets_issued")}}
+
+
+def _check_star(lines) -> dict:
+    stars = _json_rows(lines)
+    if [r["p"] for r in stars] != [8, 64] or not all(
+            r["tick_us"] > 0 for r in stars):
+        raise AssertionError(f"examples: --star: {stars}")
+    return {"star_bench": stars}
+
+
+def _check_longctx_audit(lines) -> dict:
+    """The audit passed and launched the three flash kernels, each call
+    at a shape and offsets that ``phase_flash_offsets`` held against the
+    plain versions (contiguous bf16 inputs, causal)."""
+    (row,) = _json_rows(lines)
+    launches = row["launches"]
+    if row["failures"] or not all(
+            launches[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")):
+        raise AssertionError(f"examples: longctx_audit: {row['failures']}, "
+                             f"{launches}")
+    checked = {(kind, 1, s, s, h, d, "bfloat16", True, q, k, True)
+               for kind in ("fwd", "bwd")
+               for s, q, k, h, d in FLASH_OFFSET_ROWS}
+    calls = {tuple(c) for c in row["flash_calls"]}
+    if not calls or calls - checked:
+        raise AssertionError(f"examples: longctx_audit called the flash "
+                             f"kernels at {sorted(calls - checked)}, which "
+                             f"phase_flash_offsets does not check")
+    return {"longctx_audit": {"step_skip": row["step_skip"],
+                              "launches": launches,
+                              "flash_calls": len(calls)}}
+
+
+def _check_collectives(lines) -> dict:
+    rows = _json_rows(lines)
+    sizes = [r for r in rows if "size_mb" in r]
+    floor = [r for r in rows if "dispatch_floor_ms" in r]
+    if [r["size_mb"] for r in sizes] != [1.0, 16.0, 256.0] or len(floor) \
+            != 1 or any(r["backend"] != "nccl" for r in rows) or not all(
+            r["all_reduce_ms"] > 0 and r["all_gather_ms"] > 0
+            for r in sizes):
+        raise AssertionError(f"examples: collective_microbench: {rows}")
+    return {"collective_microbench": rows}
+
+
+def _check_control_plane(lines) -> dict:
+    (row,) = [r for r in _json_rows(lines) if "per_op_ms" in r]
+    if not (row["np"] == 1 and row["per_op_ms"] > 0
+            and row["names_per_s"] > 0):
+        raise AssertionError(f"examples: control_plane_benchmark: {row}")
+    return {"control_plane": row}
+
+
+def _check_weak_scaling(lines) -> dict:
+    (row,) = _json_rows(lines)
+    if not (row["workers"] == 1 and row["steps_per_s_per_rank"] > 0
+            and row["wire_model_mb_per_rank_per_step"] == 0.0):
+        raise AssertionError(f"examples: weak_scaling_benchmark: {row}")
+    return {"weak_scaling": row}
+
+
+def _check_resnet_bn(lines) -> dict:
+    (row,) = _json_rows(lines)
+    for leg in ("stats", "nostats"):
+        r = row[leg]
+        if not (r["img_s"] > 0 and all(map(math.isfinite, r["losses"]))
+                and r["device_busy_ms"] > 0
+                and r["device_ms_by_kind"].get("conv", 0) > 0):
+            raise AssertionError(f"examples: resnet_bn_experiment {leg}: "
+                                 f"{r}")
+    return {"resnet_bn": row}
+
+
+def _check_imagenet(lines) -> dict:
+    _expect("imagenet_resnet50", lines, "epoch 0: loss=")
+    _final_loss("imagenet_resnet50", lines)
+    return {}
+
+
+def _check_imagenet_resume(lines) -> dict:
+    _expect("imagenet_resnet50", lines, "resumed from epoch 0",
+            "epoch 1: loss=")
+    if any(line.startswith("epoch 0:") for line in lines):
+        raise AssertionError("examples: the resumed run trained epoch 0")
+    _final_loss("imagenet_resnet50", lines)
+    return {"imagenet_img_s": float(
+        [line for line in lines if line.startswith("epoch 1:")][0]
+        .split()[-2])}
+
+
+def phase_examples() -> dict:
+    """The example entry points on the card (see the module docstring);
+    the launches of ``longctx_audit``'s ranks, for the kernels line.
+
+    The children whose only output is a correctness check (with
+    ``weak_scaling_benchmark``, whose rate PERF.md does not read) run five
+    at a time, each spending most of its seconds reaching the card, the
+    first ``imagenet_resnet50`` run among them; the ones whose numbers
+    PERF.md reads run alone, one after another, the resumed
+    ``imagenet_resnet50`` run first."""
+    t0 = time.monotonic()
+    seconds, out = {}, {}
+    ckpt = tempfile.mkdtemp(prefix="hvd_smoke_examples_")
+    r50 = ("--steps-per-epoch", "2", "--batch-size", "32", "--ckpt-dir",
+           os.path.join(ckpt, "r50"))
+    # Longest first: the stage lasts at least as long as its longest
+    # child.
+    checked = [
+        ("imagenet_resnet50", 1, "imagenet_resnet50", ("--epochs", "1")
+         + r50, _check_imagenet),
+        ("torch_mnist", 1, "torch_mnist",
+         ("--epochs", "1", "--ckpt-dir", os.path.join(ckpt, "tmnist")),
+         _check_torch_mnist),
+        ("torch_synthetic_benchmark", 1, "torch_synthetic_benchmark",
+         ("--model", "convnet"), _check_synthetic),
+        ("mnist", 1, "mnist", ("--epochs", "1", "--ckpt-dir",
+                               os.path.join(ckpt, "mnist")), _check_mnist),
+        ("overlap_audit", 1, "overlap_audit", (), _check_overlap_audit),
+        ("longctx_audit", LONGCTX_AUDIT_RANKS, "longctx_audit",
+         ("--device", "cuda:0", "--backend", "gloo", "--seq-local",
+          str(LONGCTX_AUDIT_SEQ), "--assert-planner"), _check_longctx_audit),
+        ("weak_scaling_benchmark", 1, "weak_scaling_benchmark",
+         ("--grad-mb", "16"), _check_weak_scaling),
+        ("word2vec", 1, "word2vec", ("--steps", "20"), _check_word2vec),
+        ("mnist_advanced", 1, "mnist_advanced", (), _check_mnist_advanced),
+        ("int8_convergence", 1, "int8_convergence", ("--steps", "40"),
+         _check_int8),
+        ("control_plane_star", 1, "control_plane_benchmark",
+         ("--star", "8,64"), _check_star)]
+    timed = [
+        ("imagenet_resnet50_resume", 1, "imagenet_resnet50",
+         ("--epochs", "2") + r50, _check_imagenet_resume),
+        ("collective_microbench", 1, "collective_microbench",
+         ("--sizes-mb", "1,16,256"), _check_collectives),
+        ("control_plane_benchmark", 1, "control_plane_benchmark", (),
+         _check_control_plane),
+        ("resnet_bn_experiment", 1, "resnet_bn_experiment",
+         ("--batch", "64", "--warmup", "1", "--iters", "2",
+          "--batches-per-iter", "2", "--steps-per-call", "1"),
+         _check_resnet_bn)]
+
+    def run(spec):
+        tag, np_, module, args, check = spec
+        lines, seconds[tag] = _example(np_, module, *args)
+        out.update(check(lines))
+
+    try:
+        with ThreadPoolExecutor(5) as pool:
+            list(pool.map(run, checked))
+        seconds["checked_stage"] = time.monotonic() - t0
+        for spec in timed:
+            run(spec)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall_s = time.monotonic() - t0
+    emit("examples", wall_s=wall_s, seconds=seconds, **out)
+    return {"launches": out["longctx_audit"]["launches"], "wall_s": wall_s}
+
+
 def phase_analysis() -> None:
     """The analysis tools on the card's host (no device work): the wire
     mirror's golden frames and bulk token against the port's native core
@@ -4114,6 +4427,7 @@ def main() -> int:
     runs["profile"] = phase_profile()["launches"]
     phase_control_plane()
     phase_analysis()
+    runs["examples"] = phase_examples()["launches"]
     launches = {k: sum(r.get(k, 0) for r in runs.values())
                 for k in serve_launches}
     entries = []

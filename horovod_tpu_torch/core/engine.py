@@ -413,7 +413,9 @@ class NativeEngine:
                 "int8 wire format applies to floating-point allreduce only")
         staged = _Staged(t.contiguous(), as_numpy)
         dims = (ctypes.c_longlong * max(t.dim(), 1))(*t.shape)
-        err = ctypes.create_string_buffer(512)
+        # Room for an abort's whole status: a divergence report lists
+        # every rank's collective.
+        err = ctypes.create_string_buffer(1 << 12)
         with self._store_lock:
             if name in self._store:
                 # Fast-path duplicate rejection; the native engine enforces
@@ -425,10 +427,13 @@ class NativeEngine:
                     f"name has not completed. Collectives submitted in a "
                     f"loop need an explicit, per-iteration name= kwarg "
                     f"(e.g. name=f'grad.{{step}}.{{param}}') — hvd-lint "
-                    f"rule HVD102, docs/static_analysis.md.")
+                    f"rule HVD102 of `python -m "
+                    f"horovod_tpu_torch.analysis.lint`; README, \"Analysis "
+                    f"tools and the port's pre-PR gate\".")
             self._store[name] = staged
         h = self._lib.hvd_enqueue(self._ptr, name.encode(), op, dtype_id,
-                                  dims, t.dim(), root_rank, wire, err, 512)
+                                  dims, t.dim(), root_rank, wire, err,
+                                  len(err))
         if h < 0:
             with self._store_lock:
                 self._store.pop(name, None)

@@ -7,6 +7,7 @@
 #include <sstream>
 
 #include "tree.h"
+#include "wire.h"
 
 namespace hvd {
 
@@ -144,8 +145,14 @@ int64_t Engine::Enqueue(const std::string& name, OpType op, DataType dtype,
                         const TensorShape& shape, int32_t root_rank,
                         WireFormat wire, Status* status) {
   std::lock_guard<std::mutex> l(mu_);
-  if (stopped_.load() || shutdown_requested_.load()) {
-    *status = Status::Aborted("Horovod engine has been shut down.");
+  if (stopped_.load() || shutdown_requested_.load() || !abort_status_.ok()) {
+    // An engine that an abort stopped (divergence, peer failure, transport
+    // failure, reconfiguration) answers with that abort's own status, so a
+    // collective issued after the verdict reports its cause; only a real
+    // shutdown gets the bare text.
+    *status = abort_status_.ok()
+                  ? Status::Aborted("Horovod engine has been shut down.")
+                  : abort_status_;
     return -1;
   }
   if (inflight_.count(name) != 0) {
@@ -157,7 +164,9 @@ int64_t Engine::Enqueue(const std::string& name, OpType op, DataType dtype,
         std::string(OpTypeName(op)) +
         ": a previous request with this name has not completed. "
         "Collectives submitted in a loop need an explicit, per-iteration "
-        "name= kwarg (hvd-lint rule HVD102, docs/static_analysis.md).");
+        "name= kwarg (hvd-lint rule HVD102 of `python -m "
+        "horovod_tpu_torch.analysis.lint`; README, \"Analysis tools and "
+        "the port's pre-PR gate\").");
     return -1;
   }
   Request req;
@@ -311,6 +320,7 @@ void Engine::RunCycle() {
       return;
     }
   }
+  first_tick_done_.store(true);
 
   {
     // Negotiated-tick latency: the transport round (gather + negotiate +
@@ -584,8 +594,9 @@ void Engine::HandleDivergence(const std::vector<DivergenceEntry>& entries) {
     msg << "  rank " << e.rank << ": " << e.desc << "\n";
   }
   msg << "Every rank must issue the same collectives in the same order; "
-         "run `python -m horovod_tpu.analysis.lint` on the training script "
-         "to find rank-divergent call sites.";
+         "run `python -m horovod_tpu_torch.analysis.lint` on the training "
+         "script to find rank-divergent call sites (README, \"Analysis "
+         "tools and the port's pre-PR gate\").";
   std::string text = msg.str();
   std::fprintf(stderr, "ERROR: horovod_tpu %s\n", text.c_str());
   std::fflush(stderr);
@@ -632,7 +643,17 @@ void Engine::MonitorLoop() {
       }
       control_->SyncCoordState(state);
     }
-    if (!control_->HeartbeatTick(opts_.heartbeat_timeout_ms / 1000.0)) {
+    // Until this rank's first tick has come back the job is still in its
+    // rendezvous: the coordinator acks each worker as it arrives but sends
+    // nothing, heartbeats included, until the last one has, and a peer
+    // can lag a whole interpreter boot behind the others.  Silence is
+    // judged by the rendezvous budget then, by the heartbeat timeout
+    // after.
+    double timeout_s = opts_.heartbeat_timeout_ms / 1000.0;
+    if (!first_tick_done_.load()) {
+      timeout_s = std::max(timeout_s, wire::RendezvousBudgetSeconds());
+    }
+    if (!control_->HeartbeatTick(timeout_s)) {
       continue;
     }
     ReconfigInfo info;
@@ -993,6 +1014,9 @@ void Engine::FailUnscheduled(const Status& status) {
 
 void Engine::FailAllPending(const Status& status) {
   std::lock_guard<std::mutex> l(mu_);
+  // Every caller stops the engine next: the first abort's status is what
+  // later enqueues answer with (Enqueue).
+  if (abort_status_.ok()) abort_status_ = status;
   for (auto& [handle, req] : pending_enqueues_) MarkDone(handle, status);
   pending_enqueues_.clear();
   for (auto& [name, hr] : inflight_) MarkDone(hr.first, status);

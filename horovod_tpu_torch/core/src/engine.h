@@ -370,6 +370,8 @@ class Engine {
   std::vector<VerifyEntry> pending_verify_;      // guarded by mu_
   std::vector<DivergenceEntry> divergence_;      // guarded by mu_
   PeerFailureReport failure_;                    // guarded by mu_
+  // The status of the abort that stopped the engine; OK until one does.
+  Status abort_status_;                          // guarded by mu_
   ResizeEventView resize_;                       // guarded by mu_
   std::atomic<bool> resize_acked_{false};
   // Cycle counter driving the verifier interval.  Atomic because the
@@ -385,6 +387,8 @@ class Engine {
   std::atomic<int64_t> joins_admitted_{0};
 
   std::atomic<bool> shutdown_requested_{false};
+  // Set once this rank's first tick has completed (MonitorLoop).
+  std::atomic<bool> first_tick_done_{false};
   std::atomic<bool> stopped_{false};
   // First thread (cycle or monitor) to observe a peer failure wins;
   // HandlePeerFailure is a no-op for the loser.

@@ -127,11 +127,18 @@ def train_step(model, opt, x, y) -> torch.Tensor:
     return loss.detach()
 
 
-def card() -> str | None:
-    """``nvidia-smi``'s name and power limit of this process's card."""
+def card(device=None) -> str | None:
+    """``nvidia-smi``'s name and power limit of ``device`` (default: this
+    process's card, after :func:`basics.init`); None off the card."""
+    if device is None:
+        index = basics.local_rank()
+    elif torch.device(device).type != "cuda":
+        return None
+    else:
+        index = torch.device(device).index or 0
     try:
         out = subprocess.run(
-            ["nvidia-smi", f"--id={basics.local_rank()}",
+            ["nvidia-smi", f"--id={index}",
              "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout
     except (OSError, subprocess.SubprocessError):

@@ -26,8 +26,9 @@ import pytest
 
 from _timing import scaled
 from horovod_tpu_torch.analysis.schedule import ScheduleRecorder
-from horovod_tpu_torch.core.engine import (OP_ALLGATHER, OP_ALLREDUCE,
-                                           OP_BROADCAST, CollectiveError,
+from horovod_tpu_torch.core.engine import (DTYPES, OP_ALLGATHER,
+                                           OP_ALLREDUCE, OP_BROADCAST,
+                                           WIRE_NATIVE, CollectiveError,
                                            NativeEngine)
 from horovod_tpu_torch.core.executors import multihost_executor
 
@@ -423,6 +424,87 @@ def test_divergent_job_aborts_with_report(tmp_path):
         assert {s for _, s, _ in report} == {2}, report
         descs = sorted(d for _, _, d in report)
         assert "step.2" in descs[0] and "step.3" in descs[1], report
+
+
+def _worker_enqueue_after_divergence(rank, size, port, q):
+    os.environ["HVD_TPU_VERIFY_SCHEDULE"] = "1"
+    os.environ["HVD_TPU_VERIFY_INTERVAL_TICKS"] = "2"
+    eng = _tcp_engine(rank, size, port)
+    try:
+        for i in range(4):
+            if i == 2 and rank == 1:
+                continue   # rank 1 skips one collective: divergence
+            eng.enqueue(f"late.{i}", np.ones(4, np.float32), OP_ALLREDUCE)
+        deadline = time.monotonic() + scaled(30)
+        while not eng.divergence_report():
+            assert time.monotonic() < deadline, "no divergence verdict"
+            time.sleep(0.02)
+        # The verdict has landed: every later enqueue carries its text.
+        try:
+            eng.enqueue("after.verdict", np.ones(4, np.float32),
+                        OP_ALLREDUCE)
+            q.put(("accepted", rank, None))
+        except CollectiveError as e:
+            q.put(("refused", rank, str(e)))
+    finally:
+        eng._shutdown.set()   # the engine already stopped itself
+
+
+def test_enqueue_after_divergence_carries_the_report(tmp_path):
+    """An engine that the verifier stopped answers a later enqueue with the
+    divergence's status, never the bare shutdown text, and names the
+    port's own linter."""
+    results = _run_spawn(_worker_enqueue_after_divergence, tmp_path)
+    assert {r[0] for r in results} == {"refused"}, results
+    for _, rank, msg in results:
+        assert "schedule divergence" in msg.lower(), (rank, msg)
+        assert "has been shut down" not in msg, (rank, msg)
+        assert "late.2" in msg and "late.3" in msg, (rank, msg)
+        assert "python -m horovod_tpu_torch.analysis.lint" in msg, msg
+        assert "horovod_tpu.analysis" not in msg, msg
+        assert "Analysis tools and the port's pre-PR gate" in msg, msg
+
+
+def test_enqueue_after_shutdown_keeps_the_bare_text(world1):
+    eng = _engine(cycle_time_ms=1.0)
+    try:
+        eng.synchronize(eng.enqueue("sd.x", np.ones(4, np.float32),
+                                    OP_ALLREDUCE))
+        eng._lib.hvd_shutdown(eng._ptr)   # the stop that shutdown() asks
+        with pytest.raises(CollectiveError) as e:
+            eng.enqueue("sd.y", np.ones(4, np.float32), OP_ALLREDUCE)
+    finally:
+        eng.shutdown()
+    assert str(e.value) == "Horovod engine has been shut down.", e.value
+
+
+def test_duplicate_name_messages_name_the_port_linter(world1):
+    """Both duplicate-name checks, the shim's and the native engine's,
+    send users to the port's linter and its README section."""
+    import ctypes
+
+    eng = _engine(cycle_time_ms=5000.0, cache_capacity=0)
+    try:
+        eng.enqueue("dup.x", np.ones(4, np.float32), OP_ALLREDUCE)
+        with pytest.raises(CollectiveError) as shim:
+            eng.enqueue("dup.x", np.ones(4, np.float32), OP_ALLREDUCE)
+        # The native check, past the shim's store (the first request is
+        # still pending: the cycle is 5 s long).
+        err = ctypes.create_string_buffer(1 << 12)
+        dims = (ctypes.c_longlong * 1)(4)
+        h = eng._lib.hvd_enqueue(eng._ptr, b"dup.x", OP_ALLREDUCE,
+                                 DTYPES["float32"], dims, 1, -1,
+                                 WIRE_NATIVE, err, len(err))
+        native = err.value.decode()
+    finally:
+        eng.shutdown()
+    assert h < 0, h
+    for msg in (str(shim.value), native):
+        assert "Duplicate tensor name 'dup.x'" in msg, msg
+        assert "HVD102" in msg, msg
+        assert "python -m horovod_tpu_torch.analysis.lint" in msg, msg
+        assert "docs/static_analysis.md" not in msg, msg
+        assert "Analysis tools and the port's pre-PR gate" in msg, msg
 
 
 def _worker_clean(rank, size, port, q):

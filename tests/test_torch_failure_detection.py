@@ -408,3 +408,46 @@ def test_chaos_soak_elastic_shrinks_or_aborts_never_hangs(mode):
     if mode != "KILL":
         assert procs[2].returncode == 75, (mode, procs[2].returncode,
                                            outs[2][-2500:])
+
+
+# -- a late rank in the rendezvous ---------------------------------------------
+
+# argv = [rank, port, nprocs, store (unused), delay_s]: engine-only ranks on
+# the local executor; the last one boots its engine ``delay_s`` late.
+LATE_RANK = textwrap.dedent("""
+    import sys, time
+    import numpy as np
+    from horovod_tpu_torch.core.engine import NativeEngine, OP_ALLREDUCE
+    from horovod_tpu_torch.core.executors import local_executor
+
+    rank, port, n = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+    if rank == n - 1:
+        time.sleep(float(sys.argv[5]))
+    eng = NativeEngine(rank, n, executor=local_executor,
+                       coordinator_host="127.0.0.1", coordinator_port=port,
+                       cycle_time_ms=2.0)
+    for i in range(3):
+        eng.synchronize(eng.enqueue(f"late.{i}", np.ones(4, np.float32),
+                                    OP_ALLREDUCE), timeout_s=120.0)
+    print(f"RANK{rank} OK", flush=True)
+    eng.shutdown()
+""")
+
+
+def test_a_rank_late_to_the_rendezvous_is_not_a_dead_coordinator():
+    """The coordinator acks each worker as it arrives and heartbeats only
+    once every rank has: a worker acked early must not take that silence
+    for a dead coordinator while a peer is still booting (three heartbeat
+    timeouts late here), as under a loaded host's interpreter starts."""
+    delay = 3 * int(FAST_HB["HVD_TPU_HEARTBEAT_TIMEOUT_MS"]) / 1000.0
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": REPO, **FAST_HB}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", LATE_RANK, str(r), str(port), "3", "-",
+         str(delay)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=REPO) for r in range(3)]
+    outs = _drain(procs, scaled(120))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (r, out[-2500:])
+        assert f"RANK{r} OK" in out, (r, out[-2500:])
+        assert "heartbeat_timeout" not in out, (r, out[-2500:])

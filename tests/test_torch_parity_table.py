@@ -99,3 +99,69 @@ def test_na_symbols_exist_in_the_jax_package():
     for name in ("DistributedState", "DistributedEFState",
                  "MasterWeightsState"):
         assert re.search(rf"^class {name}\b", training, re.M), name
+
+
+# -- the entry points: examples/ -> horovod_tpu_torch --------------------------
+
+EXAMPLES_DIR = os.path.join(REPO, "examples")
+EXAMPLES_HEADING = "### Parity table: `examples/` → `horovod_tpu_torch`"
+EXAMPLES_NA = {"tensorflow_mnist.py", "tf_keras_mnist.py"}
+
+
+def _examples() -> list[str]:
+    return sorted(f for f in os.listdir(EXAMPLES_DIR)
+                  if f.endswith(".py") and f != "__init__.py")
+
+
+def _examples_table() -> dict[str, str]:
+    with open(os.path.join(REPO, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    assert text.count(EXAMPLES_HEADING) == 1, \
+        "the README lost its parity table of the examples"
+    rows = {}
+    for line in text.split(EXAMPLES_HEADING, 1)[1].splitlines():
+        if line.startswith("#"):
+            break
+        m = re.match(r"^\| `([^`]+)` \| (.+) \|$", line)
+        if m is None or m.group(1) == "examples/":
+            continue
+        assert m.group(1) not in rows, f"two rows for {m.group(1)}"
+        rows[m.group(1)] = m.group(2)
+    return rows
+
+
+def _counterpart(script: str) -> str:
+    """The port's module of the same name (a ``jax_`` prefix dropped)."""
+    name = script[len("jax_"):] if script.startswith("jax_") else script
+    return os.path.join(PORT_DIR, "examples", name)
+
+
+def test_every_example_has_a_counterpart_or_a_row():
+    rows = _examples_table()
+    missing = [s for s in _examples()
+               if not os.path.exists(_counterpart(s)) and s not in rows]
+    assert missing == [], (
+        f"scripts of examples/ with no module in horovod_tpu_torch/"
+        f"examples/ and no row of the README's parity table: {missing}")
+
+
+def test_examples_table_lists_every_script_and_no_other():
+    rows = _examples_table()
+    assert sorted(rows) == _examples()
+
+
+def test_examples_rows_name_modules_that_exist():
+    for script, cell in _examples_table().items():
+        if cell.startswith(NA):
+            assert script in EXAMPLES_NA, (script, cell)
+            assert len(cell) > len(NA) + 20, f"{script}: no reason given"
+            continue
+        port = re.match(r"^`([^`]+)`", cell)
+        assert port, (script, cell)
+        assert os.path.isfile(os.path.join(PORT_DIR, port.group(1))), \
+            (script, cell)
+        if port.group(1).startswith("examples/"):
+            assert os.path.join(PORT_DIR, port.group(1)) == \
+                _counterpart(script), (script, cell)
+    assert {s for s, c in _examples_table().items()
+            if c.startswith(NA)} == EXAMPLES_NA

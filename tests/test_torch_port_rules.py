@@ -55,6 +55,19 @@ def test_importing_every_module_loads_no_jax():
     assert "horovod_tpu_torch.serving.engine" in new
 
 
+def test_the_walk_covers_every_example_module():
+    # The two tests around this one reach the example entry points through
+    # the package walk; every module file under examples/ is in it.
+    ex_dir = os.path.join(PKG_DIR, "examples")
+    files = sorted(f[:-3] for f in os.listdir(ex_dir)
+                   if f.endswith(".py") and f != "__init__.py")
+    assert len(files) >= 13, files
+    mods = _modules()
+    assert "horovod_tpu_torch.examples" in mods
+    assert [f for f in files
+            if f"horovod_tpu_torch.examples.{f}" not in mods] == []
+
+
 @pytest.mark.parametrize("path", sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
     if f.endswith(".py")) + [os.path.join(REPO, "chip_smoke.py")])
