@@ -1,0 +1,12 @@
+"""``kernels_per_step.train`` (kernels): device kernels launched in the
+traced window over the decoder training steps it ran.  Layer: the
+trainer's dispatch.  Moves ``train_tokens_per_s``."""
+
+from perfbench import tracing
+
+
+def read(t):
+    if t.get("family") != "decoder" or t.get("phase") != "train":
+        return None
+    n = len(tracing.kernels(t["events"]))
+    return n / t["steps"] if n else None
