@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.flash_attention import make_flash_attention
 from horovod_tpu_torch.ops.rmsnorm import FusedRMSNorm
+from horovod_tpu_torch.utils import profiling
 from horovod_tpu_torch.utils.device import resolve_device
 
 
@@ -161,15 +162,16 @@ def cached_decode_attention(q, k_cache, v_cache, lengths):
     ``k_cache``/``v_cache``: [B, S, H, D], everything past each row's own
     position masked.  Same f32-softmax/-1e30-mask arithmetic as
     :func:`dense_causal_attention`."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float() * scale
-    s, s_q = k_cache.shape[1], q.shape[1]
-    qpos = lengths[:, None] + torch.arange(s_q, device=q.device)[None, :]
-    mask = (torch.arange(s, device=q.device)[None, None, :]
-            <= qpos[:, :, None])[:, None, :, :]                # [B,1,S_q,S]
-    logits = logits.masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache)
+    with profiling.span("attention.decode"):
+        scale = q.shape[-1] ** -0.5
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float() * scale
+        s, s_q = k_cache.shape[1], q.shape[1]
+        qpos = lengths[:, None] + torch.arange(s_q, device=q.device)[None, :]
+        mask = (torch.arange(s, device=q.device)[None, None, :]
+                <= qpos[:, :, None])[:, None, :, :]            # [B,1,S_q,S]
+        logits = logits.masked_fill(~mask, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache)
 
 
 def write_cache(cache, new, start) -> None:

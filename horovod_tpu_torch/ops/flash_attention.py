@@ -70,6 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.utils import profiling
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -448,19 +449,23 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
-        out, lse = flash_attention_with_lse(q, k, v, causal, q_offset,
-                                            k_offset)
+        with profiling.span("attention.flash"):
+            out, lse = flash_attention_with_lse(q, k, v, causal, q_offset,
+                                                k_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, q_offset, k_offset)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        g = g.contiguous()
-        delta = (g.float() * out.float()).sum(dim=-1)
-        dq, dk, dv = flash_attention_backward(q, k, v, g, lse, delta,
-                                              *ctx.args)
+        # On the card the autograd engine's device thread runs this, so
+        # the span opens on the thread that launches its kernels.
+        with profiling.span("attention.flash"):
+            q, k, v, out, lse = ctx.saved_tensors
+            g = g.contiguous()
+            delta = (g.float() * out.float()).sum(dim=-1)
+            dq, dk, dv = flash_attention_backward(q, k, v, g, lse, delta,
+                                                  *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.serving.prefix_cache import PrefixCache
+from horovod_tpu_torch.utils import profiling
 
 _ACTIVE = None  # most recently constructed ServingEngine, for serving_stats()
 
@@ -233,13 +234,15 @@ class _ModelBackend:
         # The engine's lengths count the pending (not yet cached) token;
         # the model wants the incoming token's position = cache fill
         # count = lengths - 1.
-        w = np.maximum(np.asarray(lengths, np.int64) - 1, 0)
-        self._check_fits(int(w.max()), tok_block.shape[1])
-        with torch.inference_mode():
-            logits = self._run_cached(self._tokens(tok_block),
-                                      self._tokens(w))
-            preds = torch.argmax(logits, dim=-1).to(torch.int32)
-            return preds.cpu().numpy(), logits.float().cpu().numpy()
+        with profiling.span("serve.decode"):
+            w = np.maximum(np.asarray(lengths, np.int64) - 1, 0)
+            self._check_fits(int(w.max()), tok_block.shape[1])
+            with torch.inference_mode():
+                logits = self._run_cached(self._tokens(tok_block),
+                                          self._tokens(w))
+                with profiling.span("serve.to_host"):
+                    preds = torch.argmax(logits, dim=-1).to(torch.int32)
+                    return preds.cpu().numpy(), logits.float().cpu().numpy()
 
     def decode(self, last_tokens: np.ndarray, lengths: np.ndarray):
         return self._cache_step(np.asarray(last_tokens)[:, None], lengths)
@@ -278,16 +281,18 @@ class TransformerBackend(_ModelBackend):
                                          device=self.device)
 
     def prefill(self, padded: np.ndarray, length: int, slot: int):
-        self._check_fits(0, padded.shape[1])
-        with torch.inference_mode():
-            logits, (pk, pv) = self.model(self._tokens(padded),
-                                          return_kv=True)
-            s = padded.shape[1]
-            self.kk[:, slot, :s] = pk[:, 0]
-            self.vv[:, slot, :s] = pv[:, 0]
-            last = logits[0, length - 1]
-            first = int(torch.argmax(last))
-            return first, last.float().cpu().numpy()
+        with profiling.span("serve.prefill"):
+            self._check_fits(0, padded.shape[1])
+            with torch.inference_mode():
+                logits, (pk, pv) = self.model(self._tokens(padded),
+                                              return_kv=True)
+                s = padded.shape[1]
+                self.kk[:, slot, :s] = pk[:, 0]
+                self.vv[:, slot, :s] = pv[:, 0]
+                last = logits[0, length - 1]
+                with profiling.span("serve.to_host"):
+                    first = int(torch.argmax(last))
+                    return first, last.float().cpu().numpy()
 
     def _run_cached(self, tokens: torch.Tensor, start: torch.Tensor):
         logits, _ = self.model(tokens, kv_cache=(self.kk, self.vv),
@@ -322,9 +327,10 @@ class PagedTransformerBackend(_ModelBackend):
     and :meth:`release_slot` (a detached row points at the scratch page
     0), and the gather and scatter indices are computed on the device from
     ``lengths``, so decode and verify each have one shape whatever the mix
-    of admissions.  The gather and scatter run inside ``record_function``
-    spans ``paged_gather`` and ``paged_scatter``, which the breakdown
-    reads.  Page-id bookkeeping (allocation, refcounts, trie) is
+    of admissions.  The gather and scatter run inside profiler spans
+    ``paged_gather`` and ``paged_scatter`` (``utils/profiling.span``),
+    which the breakdown reads.  Page-id bookkeeping (allocation,
+    refcounts, trie) is
     :class:`~horovod_tpu_torch.serving.prefix_cache.PrefixCache`'s; the
     engine feeds admissions' page rows in through :meth:`attach_slot`.
     """
@@ -364,7 +370,7 @@ class PagedTransformerBackend(_ModelBackend):
                                f"index a pool on {self.pk.device}")
         ell, _, ps, h, d = self.pk.shape
         b, p = tables.shape
-        with torch.profiler.record_function("paged_gather"):
+        with profiling.span("paged_gather"):
             idx = tables.reshape(-1)
             return (self.pk.index_select(1, idx).view(ell, b, p * ps, h, d),
                     self.pv.index_select(1, idx).view(ell, b, p * ps, h, d))
@@ -372,7 +378,7 @@ class PagedTransformerBackend(_ModelBackend):
     def _scatter(self, tables, kd, vd, start, n: int) -> None:
         """Positions ``start[b] .. start[b] + n`` of each dense row back
         into their pages."""
-        with torch.profiler.record_function("paged_scatter"):
+        with profiling.span("paged_scatter"):
             offs = start[:, None] + torch.arange(n, device=start.device)
             rows = torch.arange(tables.shape[0], device=start.device)[:, None]
             pidx = tables.gather(1, offs // self.page_size)
@@ -399,15 +405,17 @@ class PagedTransformerBackend(_ModelBackend):
         """Prefill the suffix block at position ``prefix_len`` of the
         slot's row, whose first ``prefix_len // page_size`` pages already
         hold the prefix's K/V."""
-        self._check_fits(prefix_len, padded.shape[1])
-        with torch.inference_mode():
-            logits = self._run(self.page_tables[slot:slot + 1],
-                               self._tokens(padded),
-                               self._tokens([prefix_len]))
-            last = logits[0] if padded.shape[1] == 1 else \
-                logits[0, suffix_len - 1]
-            first = int(torch.argmax(last))
-            return first, last.float().cpu().numpy()
+        with profiling.span("serve.prefill"):
+            self._check_fits(prefix_len, padded.shape[1])
+            with torch.inference_mode():
+                logits = self._run(self.page_tables[slot:slot + 1],
+                                   self._tokens(padded),
+                                   self._tokens([prefix_len]))
+                last = logits[0] if padded.shape[1] == 1 else \
+                    logits[0, suffix_len - 1]
+                with profiling.span("serve.to_host"):
+                    first = int(torch.argmax(last))
+                    return first, last.float().cpu().numpy()
 
 
 class ServingEngine:
@@ -517,6 +525,10 @@ class ServingEngine:
     # -- the tick ---------------------------------------------------------
 
     def step(self) -> list[Request]:
+        with profiling.span("serve.step"):
+            return self._step()
+
+    def _step(self) -> list[Request]:
         done: list[Request] = []
         self._admit(done)
         if any(r is not None for r in self.slots):

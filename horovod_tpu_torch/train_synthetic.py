@@ -115,15 +115,18 @@ def train_step(model, opt, x, y) -> torch.Tensor:
     backward, averaged gradients, SGD update.  Returns the loss (on the
     device; reading it waits for the step)."""
     opt.zero_grad(set_to_none=True)
-    out = model(x, train=True)
-    if isinstance(out, tuple):
-        logits, aux = out
-        loss = softmax_cross_entropy(logits, y).mean() \
-            + AUX_WEIGHT * softmax_cross_entropy(aux, y).mean()
-    else:
-        loss = softmax_cross_entropy(out, y).mean()
-    loss.backward()
-    opt.step()
+    with profiling.span("train.forward"):
+        out = model(x, train=True)
+        if isinstance(out, tuple):
+            logits, aux = out
+            loss = softmax_cross_entropy(logits, y).mean() \
+                + AUX_WEIGHT * softmax_cross_entropy(aux, y).mean()
+        else:
+            loss = softmax_cross_entropy(out, y).mean()
+    with profiling.span("train.backward"):
+        loss.backward()
+    with profiling.span("train.optimizer"):
+        opt.step()
     return loss.detach()
 
 
@@ -195,7 +198,7 @@ def run(args, threshold: int | None = None, **model_kw) -> dict:
               for _ in range(args.num_warmup_batches)]
     if args.profile:
         with profiling.trace(args.profile):
-            with profiling.annotate("train_step"):
+            with profiling.span("train_step"):
                 losses.append(float(train_step(model, opt, x, y)))
     rates = []
     for _ in range(args.num_iters):

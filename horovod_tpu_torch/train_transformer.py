@@ -23,7 +23,7 @@ The JAX benchmark's mixed-precision and memory flags, with its meanings:
 
 ``--profile DIR`` traces one more step after the warm-up into a Chrome
 trace under ``DIR`` (rank 0; ``horovod_tpu_torch.profiling.trace``, the
-step inside an ``annotate("train_step")`` span), as the JAX benchmark's
+step inside a ``span("train_step")``), as the JAX benchmark's
 ``--profile`` traces one dispatch.
 
 It prints one JSON line, ``transformer_train_throughput``: tokens/s over the
@@ -103,9 +103,12 @@ def train_step(model, opt, tokens, accumulate: int = 1) -> torch.Tensor:
         loss = accumulate_gradients(lambda mb: loss_fn(model, mb), tokens,
                                     accumulate)
     else:
-        loss = loss_fn(model, tokens)
-        loss.backward()
-    opt.step()
+        with profiling.span("train.forward"):
+            loss = loss_fn(model, tokens)
+        with profiling.span("train.backward"):
+            loss.backward()
+    with profiling.span("train.optimizer"):
+        opt.step()
     return loss.detach()
 
 
@@ -169,7 +172,7 @@ def main(argv=None) -> int:
             train_step(model, opt, tokens, args.accumulate)
         if args.profile:
             with profiling.trace(args.profile):
-                with profiling.annotate("train_step"):
+                with profiling.span("train_step"):
                     train_step(model, opt, tokens, args.accumulate)
                 torch.cuda.synchronize()
         torch.cuda.synchronize()

@@ -34,6 +34,7 @@ from torch import nn
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import collective_ops, fusion, schedule_plan
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.utils import profiling
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
@@ -265,6 +266,10 @@ class _DistributedOptimizer:
         """Average every parameter's ``.grad`` across the processes, in
         place.  A parameter without a gradient contributes zeros, so every
         process runs the same collectives."""
+        with profiling.span("optimizer.synchronize"):
+            self._synchronize()
+
+    def _synchronize(self) -> None:
         if not self._planned:
             self._make_plan()
         self._reduce_sparse()
@@ -452,19 +457,22 @@ class _MasterWeights(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group, inner in zip(self.param_groups,
-                                self._inner.param_groups):
-            inner.update({k: v for k, v in group.items() if k != "params"})
-            for p, m in zip(group["params"], inner["params"]):
-                m.grad = None if p.grad is None else \
-                    p.grad.to(self._master_dtype)
+        with profiling.span("master.grads_in"):
+            for group, inner in zip(self.param_groups,
+                                    self._inner.param_groups):
+                inner.update({k: v for k, v in group.items()
+                              if k != "params"})
+                for p, m in zip(group["params"], inner["params"]):
+                    m.grad = None if p.grad is None else \
+                        p.grad.to(self._master_dtype)
         self._inner.step()
-        for group, inner in zip(self.param_groups,
-                                self._inner.param_groups):
-            for p, m in zip(group["params"], inner["params"]):
-                m.grad = None
-                # The JAX package's delta form, in p's dtype.
-                p.add_(m.to(p.dtype) - p)
+        with profiling.span("master.params_out"):
+            for group, inner in zip(self.param_groups,
+                                    self._inner.param_groups):
+                for p, m in zip(group["params"], inner["params"]):
+                    m.grad = None
+                    # The JAX package's delta form, in p's dtype.
+                    p.add_(m.to(p.dtype) - p)
         return loss
 
     def state_dict(self):
@@ -556,8 +564,10 @@ def accumulate_gradients(loss_fn, batch, num_microbatches: int):
     seed = 1.0 / num_microbatches
     total = None
     for mb in parts:
-        loss = loss_fn(mb)
-        (loss * seed).backward()
+        with profiling.span("train.forward"):
+            loss = loss_fn(mb)
+        with profiling.span("train.backward"):
+            (loss * seed).backward()
         loss = loss.detach()
         total = loss if total is None else total + loss
     return total * seed
