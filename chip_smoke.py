@@ -63,6 +63,17 @@ line each:
 6. rmsnorm_bwd — the RMSNorm backward kernel likewise, and a profiled
                  call that must show exactly one kernel on the card (the
                  cross-block dscale sum included);
+   decode_attention — the decode attention kernel pair against its
+                 plain version in f32 at the serving cell's shape
+                 (``[32, S_q, 32, 128]`` over a ``[32, 4096, 32, 128]``
+                 bf16 cache; S_q = 1 and 5) at live lengths (spread
+                 evenly around the mix's 1,465 positions a slot) and at
+                 the full cache, and at the 162M decoder's
+                 ``[8, 1, 6, 128]`` over 2048 positions; kernel, plain
+                 and ``F.scaled_dot_product_attention`` with the boolean
+                 mask (a yardstick only) times, the bound (the live K and
+                 V bytes over 3.35 TB/s) and its share, and a profiled
+                 call that must show the two kernels of the pair;
 7. serve       — the 162M decoder on the card with seeded weights, 16
                  requests through ``ServingEngine.submit`` /
                  ``run_until_idle``; launch counts of the forward kernels
@@ -459,6 +470,14 @@ RMS_BWD_CASES = ((1000, 768), (2048, 768), (4096, 768), (8192, 768),
 # The register form's longest row (csrc/rmsnorm_fwd.cu kRegRowBytes).
 RMS_REG_ROW_BYTES = 2048
 RMS_MAIN = 8192                         # one training step's tokens
+# Decode attention rows: (B, S_q, S, H, lengths); "live" spreads the
+# slots evenly from 1/4 to 7/4 of the serving mix's time-weighted mean of
+# 1,465 live positions a slot, "full" reads every position.
+DECODE_LIVE_MEAN = 1465
+DECODE_ROWS = ((32, 1, 4096, 32, "live"), (32, 1, 4096, 32, "full"),
+               (32, 5, 4096, 32, "live"), (8, 1, 2048, 6, "live"))
+DECODE_MAIN = DECODE_ROWS[0]
+DECODE_ATOL = 1e-4
 RESNET_WARMUP, RESNET_STEPS = 3, 8
 # cnn: VGG-16 (224²) and Inception V3 (299², the aux head, loss head +
 # 0.4·aux) at full width and depth through train_synthetic's step, batch
@@ -609,9 +628,9 @@ def phase_build():
     import horovod_tpu_torch.ops  # noqa: F401  (registers every kernel)
     from horovod_tpu_torch.ops import _build
 
-    if sorted(_build.KERNELS) != ["flash_bwd_dkv", "flash_bwd_dq",
-                                  "flash_fwd", "rmsnorm_bwd",
-                                  "rmsnorm_fwd"]:
+    if sorted(_build.KERNELS) != ["decode_attention", "flash_bwd_dkv",
+                                  "flash_bwd_dq", "flash_fwd",
+                                  "rmsnorm_bwd", "rmsnorm_fwd"]:
         raise AssertionError(f"kernels registered: {sorted(_build.KERNELS)}")
     def load(k):
         t = time.monotonic()
@@ -985,6 +1004,73 @@ def phase_rmsnorm_bwd() -> dict:
     return main
 
 
+def _decode_lengths(b: int, s: int, kind: str, mean: int) -> torch.Tensor:
+    if kind == "full":
+        return torch.full((b,), s - 1, device="cuda")
+    return torch.tensor([min(s - 1, round(mean * (0.25 + 1.5 * i / (b - 1))))
+                         for i in range(b)], device="cuda")
+
+
+def phase_decode_attention() -> dict:
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import decode_attention as da
+    from horovod_tpu_torch.utils import trace
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst, main = 0.0, None
+    for row_key in DECODE_ROWS:
+        b, s_q, s, h, kind = row_key
+        d = 128
+        q = torch.randn(b, s_q, h, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        lengths = _decode_lengths(b, s, kind,
+                                  DECODE_LIVE_MEAN * s // 4096)
+        out = da.decode_attention(q, k, v, lengths)
+        want = da.decode_attention_reference(q.float(), k.float(), v.float(),
+                                             lengths)
+        torch.cuda.synchronize()
+        tag = f"decode_attention B={b} S_q={s_q} S={s} H={h} {kind}"
+        # One rounding of an f32 result to bf16 (see the card tests).
+        err = check_close(tag, out, want, DECODE_ATOL, 2.0 ** -8)
+        del want
+        worst = max(worst, err)
+        names = trace.kernels_in_one_call(
+            lambda: da.decode_attention(q, k, v, lengths))
+        if len(names) != 2 or not all("decode_attention" in n
+                                      for n in names):
+            raise AssertionError(f"{tag}: one call ran {names}")
+        visible = int((torch.clamp(lengths + s_q, max=s)).sum())
+        # Live K and V read once, q in and the output out (bf16).
+        nbytes = 2.0 * (2 * visible * h * d + 2 * b * s_q * h * d)
+        flops = 4.0 * visible * s_q * h * d
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_CUDA_CORE_FLOPS)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        qpos = lengths[:, None] + torch.arange(s_q, device="cuda")
+        mask = (torch.arange(s, device="cuda")[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        row = dict(
+            shape=[b, s_q, h, d], s=s, lengths=kind,
+            mean_visible=visible / b, max_abs_err=err,
+            kernel_ms=time_ms(lambda: da.decode_attention(q, k, v,
+                                                          lengths)),
+            plain_ms=time_ms(lambda: da.decode_attention_reference(
+                q, k, v, lengths), iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), iters=5),
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+            bytes=nbytes, kernels_per_call=names)
+        row["share_of_bound"] = bound_ms / row["kernel_ms"]
+        del qt, kt, vt, q, k, v
+        emit("decode_attention", **row)
+        if row_key == DECODE_MAIN:
+            main = row
+    main["max_abs_err"] = worst
+    return main
+
+
 def phase_serve() -> dict:
     from horovod_tpu_torch.models.convert import init_params
     from horovod_tpu_torch.models.transformer import (Transformer,
@@ -1022,6 +1108,7 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    read0, dense0 = backend.kv_positions_read, backend.kv_positions_dense
     t0 = eng.clock()
     reqs = [eng.submit(p, new_tokens) for p in prompts]
     done = eng.run_until_idle()
@@ -1029,6 +1116,14 @@ def phase_serve() -> dict:
     wall = eng.clock() - t0
     launches = _launches()
     prefills, steps = eng.counters["admitted"], eng.counters["steps"]
+    cache_steps = (backend.kv_positions_dense - dense0) // (
+        scfg.num_slots * scfg.max_seq_len)
+    kv_read_share = (backend.kv_positions_read - read0) / (
+        backend.kv_positions_dense - dense0)
+    if launches["decode_attention"] != cache_steps * mcfg.num_layers:
+        raise AssertionError(
+            f"decode attention launches {launches['decode_attention']} != "
+            f"decode steps {cache_steps} x {mcfg.num_layers}")
 
     if len(done) != len(reqs) or any(
             r.finish_reason != "max_new_tokens"
@@ -1076,6 +1171,7 @@ def phase_serve() -> dict:
          ttft_p99_ms=rep["ttft_p99_ms"], token_p50_ms=rep["token_p50_ms"],
          token_p99_ms=rep["token_p99_ms"],
          tokens_per_s=rep["tokens_per_s"], wall_s=wall,
+         kv_read_share=kv_read_share,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          plain_max_abs_dlogits=dlogits, plain_argmax_match=argmax_ok)
     return launches, model, rep
@@ -1768,14 +1864,16 @@ def _per_step(cfg, accumulate: int = 1, width: int = 1) -> dict:
     and dk/dv per layer (under zigzag at width n > 1, 4n: four half-pairs
     at each of n ring steps) and 2L + 1 norms, forward and backward; under
     remat (the context plan's, when the model has one) every block's
-    forward (its flash forwards and two norms) runs twice."""
+    forward (its flash forwards and two norms) runs twice.  A training
+    step runs no decode attention."""
     layers, norms = cfg.num_layers, 2 * cfg.num_layers + 1
     flash = layers * (4 * width if width > 1 else 1)
     remat = cfg.remat if cfg.context_plan is None else cfg.context_plan.remat
     fwd, norm_fwd = (2 * flash, norms + 2 * layers) if remat else \
         (flash, norms)
-    per = {"flash_fwd": fwd, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
-           "rmsnorm_fwd": norm_fwd, "rmsnorm_bwd": norms}
+    per = {"decode_attention": 0, "flash_fwd": fwd, "flash_bwd_dq": flash,
+           "flash_bwd_dkv": flash, "rmsnorm_fwd": norm_fwd,
+           "rmsnorm_bwd": norms}
     return {n: c * accumulate for n, c in per.items()}
 
 
@@ -4018,7 +4116,7 @@ def phase_profile() -> dict:
         want = {k: c * PROFILE_STEPS for k, c in _per_step(cfg).items()}
         if launches != want:
             raise AssertionError(f"profile launches {launches}, want {want}")
-        missing = [k for k in want if not kinds.get(k)]
+        missing = [k for k, n in want.items() if n and not kinds.get(k)]
         if spans < PROFILE_STEPS or missing:
             raise AssertionError(f"profile trace: {spans} train_step spans, "
                                  f"no kernel of {missing}")
@@ -4389,6 +4487,7 @@ def main() -> int:
     phase_flash_offsets()
     rms = phase_rmsnorm()
     rms_bwd = phase_rmsnorm_bwd()
+    decode = phase_decode_attention()
     norm_rows = set()
     with record_norm_rows(norm_rows):
         serve_launches, serve_model, serve_rep = phase_serve()
@@ -4458,7 +4557,14 @@ def main() -> int:
              "(16-byte vectors; rows of at most 2 KB, width a multiple of "
              "8; else a loop over the row), dscale summed across blocks "
              "in the same launch, in block order, by two levels of "
-             "last-block tickets")):
+             "last-block tickets"),
+            ("decode_attention", decode, "none: horovod_tpu/models/"
+             "transformer.py:132 is an XLA einsum", cuda_cores,
+             "split-KV: a block per (256-position chunk, head group, "
+             "slot) streams only the slot's visible K and V, once, "
+             "through a 3-stage cp.async ring, with an f32 online "
+             "softmax; a second kernel merges the chunks by log-sum-exp "
+             "in chunk order; a slot's bits do not depend on B")):
         entries.append({
             "name": name, "route": "cuda", "form": form, "design": design,
             "source": f"horovod_tpu_torch/csrc/{name}.cu",

@@ -14,6 +14,9 @@ also returns the per-layer K/V as ``[L, B, S, H, D]``, and ``kv_cache=(k, v)``
 with ``lengths`` for a decode, verify or suffix step over a preallocated
 per-slot cache.  Unlike the JAX package, which returns updated copies, the
 port writes the new K/V into the cache tensors in place and returns them.
+On the card a decode or verify step's attention is the decode kernel
+(``ops/decode_attention.py``), which reads each slot's visible positions
+in place.
 :func:`init_kv_cache` allocates the dense per-slot cache and
 :func:`init_kv_pages` the page pool of the paged serving backend, which
 gathers pages into the same dense layout before each cache step.
@@ -52,6 +55,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from horovod_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference, kernel_takes)
 from horovod_tpu_torch.ops.flash_attention import make_flash_attention
 from horovod_tpu_torch.ops.rmsnorm import FusedRMSNorm
 from horovod_tpu_torch.utils import profiling
@@ -160,18 +165,16 @@ def cached_decode_attention(q, k_cache, v_cache, lengths):
 
     ``q``: [B, S_q, H, D], query row ``i`` at position ``lengths[b] + i``;
     ``k_cache``/``v_cache``: [B, S, H, D], everything past each row's own
-    position masked.  Same f32-softmax/-1e30-mask arithmetic as
-    :func:`dense_causal_attention`."""
+    position masked.  A block the decode kernel takes (a CUDA tensor of at
+    most 16 rows, head dim 64 or 128: decode and verify) runs
+    ``ops/decode_attention.py``'s kernel, which reads each slot's visible
+    positions only; any other block (CPU tensors, the paged backend's
+    suffix prefills of a bucket's size) runs the plain version, the same
+    f32-softmax/-1e30-mask arithmetic as :func:`dense_causal_attention`."""
     with profiling.span("attention.decode"):
-        scale = q.shape[-1] ** -0.5
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float() * scale
-        s, s_q = k_cache.shape[1], q.shape[1]
-        qpos = lengths[:, None] + torch.arange(s_q, device=q.device)[None, :]
-        mask = (torch.arange(s, device=q.device)[None, None, :]
-                <= qpos[:, :, None])[:, None, :, :]            # [B,1,S_q,S]
-        logits = logits.masked_fill(~mask, -1e30)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache)
+        if kernel_takes(q):
+            return decode_attention(q, k_cache, v_cache, lengths)
+        return decode_attention_reference(q, k_cache, v_cache, lengths)
 
 
 def write_cache(cache, new, start) -> None:

@@ -45,6 +45,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from horovod_tpu_torch.ops import decode_attention
 from horovod_tpu_torch.serving.prefix_cache import PrefixCache
 from horovod_tpu_torch.utils import profiling
 
@@ -214,12 +215,19 @@ class _ModelBackend:
     cache; a tensor write does not, so every step checks on the host that
     its block fits and raises otherwise (the engine never asks for one that
     does not: it evicts a sequence at ``max_seq_len`` and speculates only
-    with room)."""
+    with room).
+
+    Each cache step adds to two host counters: the cache positions its
+    attention reads, ``Σ (w[b] + S_q)`` over the slots, and the positions a
+    read of every slot's whole cache would take, ``B × max_seq_len``;
+    :meth:`kv_read_stats` reports their ratio beside the decode kernel's
+    launches."""
 
     def __init__(self, model, num_slots: int, max_seq_len: int):
         self.model = model
         self.num_slots, self.max_seq_len = num_slots, max_seq_len
         self.device = next(model.parameters()).device
+        self.kv_positions_read = self.kv_positions_dense = 0
 
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -236,13 +244,25 @@ class _ModelBackend:
         # count = lengths - 1.
         with profiling.span("serve.decode"):
             w = np.maximum(np.asarray(lengths, np.int64) - 1, 0)
-            self._check_fits(int(w.max()), tok_block.shape[1])
+            s_q = tok_block.shape[1]
+            self._check_fits(int(w.max()), s_q)
+            self.kv_positions_read += int(w.sum()) + w.size * s_q
+            self.kv_positions_dense += w.size * self.max_seq_len
             with torch.inference_mode():
                 logits = self._run_cached(self._tokens(tok_block),
                                           self._tokens(w))
                 with profiling.span("serve.to_host"):
                     preds = torch.argmax(logits, dim=-1).to(torch.int32)
                     return preds.cpu().numpy(), logits.float().cpu().numpy()
+
+    def kv_read_stats(self) -> dict:
+        """``kv_read_share``: the cache positions the cache steps read over
+        those a dense read takes (0.0 before the first step);
+        ``decode_attention_launches``: the decode kernel's launch count
+        in this process."""
+        return {"kv_read_share": (self.kv_positions_read
+                                  / max(self.kv_positions_dense, 1)),
+                "decode_attention_launches": decode_attention.KERNEL.launches}
 
     def decode(self, last_tokens: np.ndarray, lengths: np.ndarray):
         return self._cache_step(np.asarray(last_tokens)[:, None], lengths)
@@ -318,9 +338,10 @@ class PagedTransformerBackend(_ModelBackend):
     Every prefill, cold or prefix-attached, enters through the cache path
     at position ``prefix_len``, as in the JAX package: the causal mask
     exposes the cached prefix pages plus earlier block rows, the context a
-    cold full-prompt prefill gives each position.  So the paged path runs
-    the plain cache attention and the RMSNorm kernel, never the flash
-    kernel.
+    cold full-prompt prefill gives each position.  So the paged path never
+    runs the flash kernel: its decode and verify calls run the decode
+    attention kernel on the gathered view, its prefills of a bucket's
+    length the plain cache attention, all of them the RMSNorm kernel.
 
     Shapes are fixed: the page tables are one ``[slots, pages_per_slot]``
     tensor on the pool's device, updated in place by :meth:`attach_slot`
@@ -797,6 +818,8 @@ class ServingEngine:
             "spec_accepted": c["spec_accepted"],
             "spec_accept_rate": (c["spec_accepted"]
                                  / max(c["spec_drafted"], 1)),
+            **(self.backend.kv_read_stats()
+               if hasattr(self.backend, "kv_read_stats") else {}),
         }
 
 

@@ -41,6 +41,8 @@ KINDS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
          ("rmsnorm_fwd", ("rmsnorm_fwd_kernel", "rmsnorm_fwd_regs_kernel")),
          ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_regs_kernel",
                           "rmsnorm_bwd_wide_kernel")),
+         ("decode_attention", ("decode_attention_split_kernel",
+                               "decode_attention_merge_kernel")),
          # Batch norm, and cuDNN's convolutions (forward, data and weight
          # gradients), before the matrix products whose names they share.
          ("batchnorm", ("batch_norm", "BatchNorm", "bn_fw", "bn_bw")),

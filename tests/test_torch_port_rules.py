@@ -326,9 +326,9 @@ def test_library_name_follows_source_and_flags():
     path = k.library_path()
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     assert os.path.basename(path).startswith("flash_fwd-")
-    assert sorted(_build.KERNELS) == ["flash_bwd_dkv", "flash_bwd_dq",
-                                      "flash_fwd", "rmsnorm_bwd",
-                                      "rmsnorm_fwd"]
+    assert sorted(_build.KERNELS) == ["decode_attention", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "flash_fwd",
+                                      "rmsnorm_bwd", "rmsnorm_fwd"]
     for k in _build.KERNELS.values():
         assert os.path.exists(k.source)
 
