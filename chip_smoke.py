@@ -79,6 +79,22 @@ line each:
                  ``run_until_idle``; launch counts of the forward kernels
                  over that run; one prefill repeated through the plain
                  versions;
+   decode_graph — the dense backend's CUDA graphs of the cache step
+                 against its eager path, on a fresh 162M (seed 0) at the
+                 serving cell's 32 slots of 2048 positions: 64 requests
+                 (100-1000 prompt tokens, 8-96 new, so slots refill and
+                 every slot's length moves) through two engines, one
+                 over a graphed backend, one over an eager backend of the
+                 same model; then 4 verify blocks of 32 x 5 (spec k = 4)
+                 at ragged lengths, and a decode either side of a
+                 ``swap_params`` to seed-4 weights.  Checks: at least 64
+                 decodes; every token and every row of logits equal bit
+                 for bit; both caches equal bit for bit after each part;
+                 one capture a shape, every later cache step a replay;
+                 each kernel's launches equal the eager path's, call by
+                 call; the replay after the swap equal to the eager step
+                 with the new weights and not the old.  Prints the host
+                 ms of a decode either way and each run's tokens/s;
    serve_paged — the same model on ``PagedTransformerBackend`` (8 slots,
                  2048 positions, 16-token pages, 512 cache pages): 16
                  requests of ``loadgen.make_arrivals`` (3/4 open with a
@@ -361,6 +377,11 @@ SEED = 0
 PAGED_SHARED_LEN, PAGED_REQUESTS, PAGED_NEW = 512, 16, 32
 PAGE_SIZE, PAGED_CACHE_PAGES, PAGED_SPEC_K = 16, 512, 4
 ROUTER_REQUESTS, ROUTER_NEW, ROUTER_SLO_MS = 8, 16, 1000.0
+# decode_graph: the serving cell's 32 slots, 64 requests of 100-1000
+# prompt tokens and 8-96 new ones, verify blocks of spec k = 4, and host
+# ms of a decode over 32 calls.
+GRAPH_SLOTS, GRAPH_REQUESTS, GRAPH_NEW = 32, 64, (8, 96)
+GRAPH_SPEC_K, GRAPH_VERIFY_BLOCKS, GRAPH_TIMED = 4, 4, 32
 # serve_fleet: 2 founding replicas and a joiner started 2 s after them,
 # each serving a Poisson stream of 4 requests/s for 6 s (prompts of 126,
 # 254 and 510 tokens); the probe is 16 greedy tokens; every replica must
@@ -446,11 +467,13 @@ FLASH_MORE = ((1, 1024, 1024, True, 0, 96, False, 6, torch.bfloat16),
     (16385, 64, 64, True, 0, 64, False, 4, dt)
     for dt in (torch.bfloat16, torch.float32))
 # [N, 768] bf16: every row count the main paths give the forward kernel
-# (8 decode slots; the paged verify block of 8 slots x 5; the prefill
-# buckets 128-1024; a microbatch of 2 x 1024; a rank's 4 x 1024 of the
-# 162M step at width 2; a training step's 8192), and 1 and 1000.  ``main`` fails when a main path gives it another
-# (``record_norm_rows``).
-RMS_ROWS = (1, 8, 40, 128, 256, 512, 1000, 1024, 2048, 4096, 8192)
+# (8 decode slots; the paged verify block of 8 slots x 5; decode_graph's
+# 32 slots and its verify block of 32 x 5; the prefill buckets 128-1024;
+# a microbatch of 2 x 1024; a rank's 4 x 1024 of the 162M step at width
+# 2; a training step's 8192), and 1 and 1000.  ``main`` fails when a main
+# path gives it another (``record_norm_rows``).
+RMS_ROWS = (1, 8, 32, 40, 128, 160, 256, 512, 1000, 1024, 2048, 4096,
+            8192)
 # [N, 2048] bf16: the long-context step's rows, a rank's shard of S =
 # 8192 at width 2, and S = 8192 and 32768 at width 1 (rows of 4 KB: the
 # loop form).
@@ -1175,6 +1198,156 @@ def phase_serve() -> dict:
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          plain_max_abs_dlogits=dlogits, plain_argmax_match=argmax_ok)
     return launches, model, rep
+
+
+def _same_launches(tag, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got} with the graph, "
+                             f"{want} eager")
+
+
+def _launch_delta(fn):
+    """``fn()``'s result and each kernel's launches during it."""
+    before = _launches()
+    out = fn()
+    return out, {k: n - before[k] for k, n in _launches().items()}
+
+
+def _bitwise(tag, got, want) -> None:
+    for g, w in zip(got, want, strict=True):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{tag}: the replay differs from the "
+                                 f"eager step by {np.abs(g - w).max()}")
+
+
+def _caches_equal(tag, a, b) -> None:
+    if not (torch.equal(a.kk, b.kk) and torch.equal(a.vv, b.vv)):
+        raise AssertionError(f"{tag}: the graphed backend's cache differs "
+                             "from the eager one's")
+
+
+def _decode_host_ms(backend, tokens, lengths) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_TIMED):
+        backend.decode(tokens, lengths)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED
+
+
+def phase_decode_graph() -> dict:
+    """``TransformerBackend``'s CUDA graphs against its eager cached
+    forward, as the module's docstring says."""
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      config_162m)
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.serving.engine import (ServingEngine,
+                                                  TransformerBackend)
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(_serve_config(), num_slots=GRAPH_SLOTS)
+    mcfg = config_162m(max_seq_len=cfg.max_seq_len)
+    model = Transformer(mcfg, device="cuda")
+    model.load_state_dict(init_params(mcfg, SEED))
+    graphed = TransformerBackend(model, cfg.num_slots, cfg.max_seq_len)
+    eager = TransformerBackend(model, cfg.num_slots, cfg.max_seq_len)
+    if graphed.graphs != {}:
+        raise AssertionError("the dense backend keeps no graphs on the card")
+    eager.graphs = None                    # the eager cached forward
+    rng = np.random.default_rng(SEED + 3)
+    lens = rng.integers(100, 1001, GRAPH_REQUESTS)
+    news = rng.integers(GRAPH_NEW[0], GRAPH_NEW[1] + 1, GRAPH_REQUESTS)
+    prompts = [list(map(int, rng.integers(1, mcfg.vocab_size, n)))
+               for n in lens]
+
+    # (a) The engine over each backend: refills, moving lengths.
+    runs = {}
+    for name, backend in (("eager", eager), ("graph", graphed)):
+        eng = ServingEngine(backend, cfg)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        steps0 = backend.cache_steps
+        t0 = time.monotonic()
+        reqs = [eng.submit(p, int(n)) for p, n in zip(prompts, news)]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        runs[name] = dict(reqs=reqs, launches=_launches(),
+                          wall=time.monotonic() - t0,
+                          decodes=backend.cache_steps - steps0,
+                          admitted=eng.counters["admitted"])
+    a, b = runs["graph"], runs["eager"]
+    if a["decodes"] != b["decodes"] or a["decodes"] < 64:
+        raise AssertionError(f"decode_graph: {a['decodes']} decodes with "
+                             f"the graph, {b['decodes']} eager (>= 64)")
+    if a["launches"]["decode_attention"] != a["decodes"] * mcfg.num_layers:
+        raise AssertionError(f"decode_graph: decode attention launches "
+                             f"{a['launches']['decode_attention']} != "
+                             f"{a['decodes']} x {mcfg.num_layers}")
+    _same_launches("decode_graph (engine)", a["launches"], b["launches"])
+    rows = 0
+    for g, w in zip(a["reqs"], b["reqs"], strict=True):
+        if g.tokens != w.tokens or len(g.tokens) != g.max_new_tokens:
+            raise AssertionError(f"decode_graph: request {g.rid}'s tokens "
+                                 "differ from the eager run's")
+        _bitwise(f"decode_graph: request {g.rid}", g.logits, w.logits)
+        rows += len(g.logits)
+    _caches_equal("decode_graph (engine)", graphed, eager)
+    st = graphed.kv_read_stats()
+    if (st["decode_graph_captures"], st["decode_graph_replays"]) != \
+            (1, a["decodes"] - 1):
+        raise AssertionError(f"decode_graph: {st} after {a['decodes']} "
+                             "decodes (1 capture, a replay after the first)")
+
+    # (b) Verify blocks of spec k = 4: eager, capture, then replays.
+    s_q = GRAPH_SPEC_K + 1
+    lengths = rng.integers(1, cfg.max_seq_len - GRAPH_VERIFY_BLOCKS * s_q,
+                           cfg.num_slots)
+    for i in range(GRAPH_VERIFY_BLOCKS):
+        block = rng.integers(1, mcfg.vocab_size, (cfg.num_slots, s_q))
+        got, n_got = _launch_delta(lambda: graphed.verify(block, lengths))
+        want, n_want = _launch_delta(lambda: eager.verify(block, lengths))
+        _same_launches(f"decode_graph (verify {i})", n_got, n_want)
+        _bitwise(f"decode_graph (verify {i})", got, want)
+        lengths = lengths + s_q
+    _caches_equal("decode_graph (verify)", graphed, eager)
+
+    # (c) swap_params under a captured graph.
+    tokens = rng.integers(1, mcfg.vocab_size, cfg.num_slots)
+    old = graphed.decode(tokens, lengths)
+    _bitwise("decode_graph (before the swap)", old,
+             eager.decode(tokens, lengths))
+    graphed.swap_params(init_params(mcfg, SEED + 4))  # one model: both
+    got, n_got = _launch_delta(lambda: graphed.decode(tokens, lengths))
+    want, n_want = _launch_delta(lambda: eager.decode(tokens, lengths))
+    _same_launches("decode_graph (swap)", n_got, n_want)
+    _bitwise("decode_graph (swap)", got, want)
+    if np.array_equal(got[1], old[1]):
+        raise AssertionError("decode_graph: the replay after swap_params "
+                             "gave the old weights' logits")
+    _caches_equal("decode_graph (swap)", graphed, eager)
+    st = graphed.kv_read_stats()
+    if st["decode_graph_captures"] != 2:
+        raise AssertionError(f"decode_graph: {st['decode_graph_captures']} "
+                             "captures (one decode, one verify width)")
+    decode_ms = {name: _decode_host_ms(backend, tokens, lengths)
+                 for name, backend in (("eager", eager), ("graph", graphed),
+                                       ("eager_again", eager),
+                                       ("graph_again", graphed))}
+    tokens_out = sum(len(r.tokens) for r in a["reqs"])
+    emit("decode_graph", model="162M decoder, seed 0 (seed 4 after the "
+         "swap)", slots=cfg.num_slots, max_seq_len=cfg.max_seq_len,
+         requests=GRAPH_REQUESTS, refills=a["admitted"] - cfg.num_slots,
+         decodes=a["decodes"], logit_rows_bitwise=rows,
+         verify_blocks=GRAPH_VERIFY_BLOCKS, verify_s_q=s_q,
+         launches=a["launches"], launches_equal_eager=True,
+         swap_params_bitwise=True, graph_stats=st,
+         decode_host_ms=decode_ms,
+         tokens_per_s={k: tokens_out / r["wall"] for k, r in runs.items()},
+         seconds=time.monotonic() - t_phase)
+    del graphed, eager, model
+    torch.cuda.empty_cache()
+    return a["launches"]
 
 
 def _serve_config(**kw):
@@ -4494,6 +4667,7 @@ def main() -> int:
         if not (serve_launches["flash_fwd"]
                 and serve_launches["rmsnorm_fwd"]):
             raise AssertionError("the serve run launched no forward kernel")
+        graph_launches = phase_decode_graph()
         paged_launches = phase_serve_paged(serve_model)
         router_launches = phase_router(serve_model)
         del serve_model
@@ -4510,10 +4684,12 @@ def main() -> int:
     phase_train_eager_2proc()
     resume = phase_train_resume()
     phase_train_elastic_3proc(resume["deterministic"])
-    # Launches on the path: the serve, serve_paged (a-d), router,
+    # Launches on the path: the serve, decode_graph (its graphed run),
+    # serve_paged (a-d), router,
     # serve_fleet (every replica's serving run), 162M train and train_eager
     # runs, each counted from 0 around its own run.
-    runs = {"serve": serve_launches, "serve_paged": paged_launches,
+    runs = {"serve": serve_launches, "decode_graph": graph_launches,
+            "serve_paged": paged_launches,
             "router": router_launches, "serve_fleet": fleet_launches,
             "train": train["launches"], "train_eager": eager["launches"],
             "train_resume": resume["launches"],

@@ -45,7 +45,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from horovod_tpu_torch.ops import decode_attention
+from horovod_tpu_torch.ops import _build, decode_attention
 from horovod_tpu_torch.serving.prefix_cache import PrefixCache
 from horovod_tpu_torch.utils import profiling
 
@@ -221,13 +221,14 @@ class _ModelBackend:
     attention reads, ``Σ (w[b] + S_q)`` over the slots, and the positions a
     read of every slot's whole cache would take, ``B × max_seq_len``;
     :meth:`kv_read_stats` reports their ratio beside the decode kernel's
-    launches."""
+    launches and the cache steps that replayed a CUDA graph."""
 
     def __init__(self, model, num_slots: int, max_seq_len: int):
         self.model = model
         self.num_slots, self.max_seq_len = num_slots, max_seq_len
         self.device = next(model.parameters()).device
         self.kv_positions_read = self.kv_positions_dense = 0
+        self.cache_steps = 0
 
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -248,21 +249,33 @@ class _ModelBackend:
             self._check_fits(int(w.max()), s_q)
             self.kv_positions_read += int(w.sum()) + w.size * s_q
             self.kv_positions_dense += w.size * self.max_seq_len
+            self.cache_steps += 1
             with torch.inference_mode():
-                logits = self._run_cached(self._tokens(tok_block),
-                                          self._tokens(w))
+                logits = self._run_cached(np.asarray(tok_block), w)
                 with profiling.span("serve.to_host"):
                     preds = torch.argmax(logits, dim=-1).to(torch.int32)
                     return preds.cpu().numpy(), logits.float().cpu().numpy()
+
+    def _graph_counts(self) -> tuple[int, int]:
+        """Replays and captures of CUDA graphs among the cache steps; a
+        backend that captures none has none."""
+        return 0, 0
 
     def kv_read_stats(self) -> dict:
         """``kv_read_share``: the cache positions the cache steps read over
         those a dense read takes (0.0 before the first step);
         ``decode_attention_launches``: the decode kernel's launch count
-        in this process."""
+        in this process; ``decode_graph_replays`` and
+        ``decode_graph_captures``: the cache steps that replayed a CUDA
+        graph and the graphs captured, and ``decode_graph_share`` the
+        replays over the cache steps (0.0 before the first)."""
+        replays, captures = self._graph_counts()
         return {"kv_read_share": (self.kv_positions_read
                                   / max(self.kv_positions_dense, 1)),
-                "decode_attention_launches": decode_attention.KERNEL.launches}
+                "decode_attention_launches": decode_attention.KERNEL.launches,
+                "decode_graph_replays": replays,
+                "decode_graph_captures": captures,
+                "decode_graph_share": replays / max(self.cache_steps, 1)}
 
     def decode(self, last_tokens: np.ndarray, lengths: np.ndarray):
         return self._cache_step(np.asarray(last_tokens)[:, None], lengths)
@@ -280,6 +293,82 @@ class _ModelBackend:
         self.model.load_state_dict(state_dict)
 
 
+class _DecodeGraph:
+    """One shape ``(B, S_q)`` of :class:`TransformerBackend`'s cache step
+    as a CUDA graph.
+
+    ``step(tokens, w)``, passed to each call, is the model's cache step on
+    the backend's static cache.  Its inputs live in one static device
+    tensor, the ``[B, S_q]`` token block then the ``[B]`` write positions,
+    which every call fills from a pinned staging copy by one asynchronous
+    copy.  The first call runs ``step`` eagerly on a side stream: it warms
+    cuBLAS and builds every kernel the port loads lazily.  The second
+    captures it there, in a private pool, then replays the graph; every
+    later call replays it.  The cache is written in place and the decode
+    kernel reads the lengths on the device, so one graph serves every mix
+    of slot lengths, and the parameters are read where ``load_state_dict``
+    copies new weights.
+
+    The port's launch counters stay counts of launches on the card: the
+    launches a capture counted are taken back, and added again at every
+    replay.  A capture that fails raises."""
+
+    def __init__(self, b: int, s_q: int, device):
+        n = b * s_q
+        self.staged = torch.empty(n + b, dtype=torch.int64, pin_memory=True)
+        self.host = self.staged.numpy()
+        self.inputs = torch.empty(n + b, dtype=torch.int64, device=device)
+        self.tokens, self.w = self.inputs[:n].view(b, s_q), self.inputs[n:]
+        self.copied = torch.cuda.Event()
+        self.stream = torch.cuda.Stream(device)
+        self.graph = self.logits = None
+        self.warm = False
+        self.replays = 0
+        self.launches: list = []       # (kernel, launches a replay)
+
+    def __call__(self, step, tok_block: np.ndarray, w: np.ndarray):
+        self.copied.synchronize()      # the last copy out of ``staged`` ran
+        self.host[:tok_block.size] = tok_block.reshape(-1)
+        self.host[tok_block.size:] = w
+        self.inputs.copy_(self.staged, non_blocking=True)
+        self.copied.record()
+        if self.graph is None:
+            if not self.warm:
+                return self._eager(step)
+            self._capture(step)
+        with profiling.span("serve.decode_graph"):
+            self.graph.replay()
+        self.replays += 1
+        for kernel, n in self.launches:
+            kernel.launches += n
+        return self.logits
+
+    def _eager(self, step):
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            logits = step(self.tokens, self.w)
+        current.wait_stream(self.stream)
+        logits.record_stream(current)
+        self.warm = True
+        return logits
+
+    def _capture(self, step) -> None:
+        kernels = list(_build.KERNELS.values())
+        before = [k.launches for k in kernels]
+        graph = torch.cuda.CUDAGraph()
+        # Thread-local: another thread of the process (a fleet's control
+        # plane) may call CUDA while this one captures.
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            logits = step(self.tokens, self.w)
+        self.launches = [(k, k.launches - n)
+                         for k, n in zip(kernels, before) if k.launches > n]
+        for kernel, n in self.launches:
+            kernel.launches -= n
+        self.graph, self.logits = graph, logits
+
+
 class TransformerBackend(_ModelBackend):
     """The PyTorch :class:`Transformer` on its KV-cache path.
 
@@ -291,6 +380,11 @@ class TransformerBackend(_ModelBackend):
     0, which the engine ignores and the next prefill overwrites).  Sampling
     is greedy.  Everything runs under ``torch.inference_mode``: the
     kernels have no backward yet.  The cache is written in place.
+
+    On a CUDA device the cache steps replay CUDA graphs, one a ``(B,
+    S_q)`` shape (:class:`_DecodeGraph`: decode, and each verify block's
+    width), inside a ``serve.decode_graph`` span; on the CPU they run
+    eagerly.  Prefills run eagerly everywhere.
     """
 
     def __init__(self, model, num_slots: int, max_seq_len: int):
@@ -299,6 +393,8 @@ class TransformerBackend(_ModelBackend):
         super().__init__(model, num_slots, max_seq_len)
         self.kk, self.vv = init_kv_cache(model.cfg, num_slots, max_seq_len,
                                          device=self.device)
+        self.graphs: dict[tuple[int, int], _DecodeGraph] | None = \
+            {} if self.device.type == "cuda" else None
 
     def prefill(self, padded: np.ndarray, length: int, slot: int):
         with profiling.span("serve.prefill"):
@@ -314,10 +410,24 @@ class TransformerBackend(_ModelBackend):
                     first = int(torch.argmax(last))
                     return first, last.float().cpu().numpy()
 
-    def _run_cached(self, tokens: torch.Tensor, start: torch.Tensor):
+    def _step(self, tokens: torch.Tensor, w: torch.Tensor):
         logits, _ = self.model(tokens, kv_cache=(self.kk, self.vv),
-                               lengths=start)
+                               lengths=w)
         return logits
+
+    def _run_cached(self, tok_block: np.ndarray, w: np.ndarray):
+        if self.graphs is None:
+            return self._step(self._tokens(tok_block), self._tokens(w))
+        graph = self.graphs.get(tok_block.shape)
+        if graph is None:
+            graph = self.graphs[tok_block.shape] = _DecodeGraph(
+                *tok_block.shape, self.device)
+        return graph(self._step, tok_block, w)
+
+    def _graph_counts(self) -> tuple[int, int]:
+        graphs = (self.graphs or {}).values()
+        return (sum(g.replays for g in graphs),
+                sum(g.graph is not None for g in graphs))
 
 
 class PagedTransformerBackend(_ModelBackend):
@@ -413,8 +523,9 @@ class PagedTransformerBackend(_ModelBackend):
         self._scatter(tables, kd, vd, start, tokens.shape[1])
         return logits
 
-    def _run_cached(self, tokens: torch.Tensor, start: torch.Tensor):
-        return self._run(self.page_tables, tokens, start)
+    def _run_cached(self, tok_block: np.ndarray, w: np.ndarray):
+        return self._run(self.page_tables, self._tokens(tok_block),
+                         self._tokens(w))
 
     # -- backend interface --------------------------------------------
 

@@ -29,10 +29,12 @@ an interface: the benchmark's per-layer metrics read them):
   (``master_weights``' casts); ``attention.flash`` (the flash kernels'
   forward and backward);
 * serving: ``serve.step`` (``ServingEngine.step``), ``serve.prefill``,
-  ``serve.decode`` (decode and verify), ``serve.to_host`` (the argmax and
-  the copies to the host), ``attention.decode``
-  (``cached_decode_attention``, once a layer), and the paged backend's
-  ``paged_gather`` / ``paged_scatter``.
+  ``serve.decode`` (decode and verify), ``serve.decode_graph`` (a replay
+  of the dense backend's CUDA graph of the cache step, inside
+  ``serve.decode``), ``serve.to_host`` (the argmax and the copies to the
+  host), ``attention.decode`` (``cached_decode_attention``, once a layer
+  of each eager cache step: a replayed graph opens no span inside it),
+  and the paged backend's ``paged_gather`` / ``paged_scatter``.
 
 A span costs one boolean call and one context-manager entry while no
 profiler records.
